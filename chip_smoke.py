@@ -1,0 +1,308 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's rans16 main path once on one CUDA card.
+
+    python3 chip_smoke.py [--corpus-mb 256]
+
+Phases (any failure ends the run with a non-zero exit):
+
+1. the card: its name and power limit (``nvidia-smi``);
+2. the build of the CUDA kernels from ``range_coder_rust_tpu_torch/csrc``;
+3. each kernel against its plain PyTorch version (CUDA tensors against CPU
+   tensors, identical output required) over the small geometries of
+   ``range_coder_rust_tpu_torch.testing.KERNEL_CASES``: odd tile lengths,
+   wide and non-pow2 alphabets, leading zero-frequency symbols, a symbol
+   with c > 2^15;
+4. the main path at full size: ``api.encode`` / ``api.decode`` of a 256 MB
+   Zipf(1.2) byte corpus with ``CodecConfig(profile="rans16",
+   block_len=32768)`` (4 groups of 2048 lanes), an exact round trip, and
+   both kernels' launch counts over that run;
+5. each kernel's output on the inputs the main path gave it (recorded as
+   it ran) against its plain version on the same inputs on the card, and
+   both versions' times there and for the first group alone.
+
+It prints one JSON line on the kernels, then, as its last line,
+``{"ok": true, "device": {...}}``.  It imports no jax.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+PKG = "range_coder_rust_tpu_torch"
+REPLACES = {
+    "rans_encode": "range_coder_rust_tpu/kernels/rans_encode.py:175",
+    "rans_decode": "range_coder_rust_tpu/kernels/rans_decode.py:75",
+}
+SOURCES = {
+    "rans_encode": f"{PKG}/csrc/rans_encode.cu",
+    "rans_decode": f"{PKG}/csrc/rans_decode.cu",
+}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+class Smoke:
+    def __init__(self, card: str):
+        self.card = card
+
+    def say(self, msg: str) -> None:
+        print(f"[{self.card}] {msg}", flush=True)
+
+
+def cuda_ms(fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on the card, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def check_kernels(smoke: Smoke) -> dict:
+    """Phase 3: every kernel's output equals its plain version's on the
+    small geometries.  Returns the largest absolute difference per
+    kernel."""
+    import torch
+
+    from range_coder_rust_tpu_torch import testing
+
+    err = {"rans_encode": 0, "rans_decode": 0}
+    for name in testing.KERNEL_CASES:
+        rows, g, a = testing.kernel_case(name)
+        errs, _, _ = testing.kernels_vs_plain(rows, g, a, torch.device("cuda"))
+        if any(errs.values()):
+            raise AssertionError(f"{name}: kernel != plain version: {errs}")
+        for k, e in errs.items():
+            err[k] = max(err[k], e)
+        smoke.say(f"kernel == plain: {name} (G={g} rows={rows.shape[0]} "
+                  f"L={rows.shape[1]} A={a})")
+    return err
+
+
+class Recorder:
+    """Wraps a kernel wrapper where ``rans_codec`` calls it, and keeps the
+    arguments and the result of each call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        self.calls.append((args, kw, out))
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def plain_wall(fn):
+    """(result, host milliseconds) of one call, the card synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def main_path(smoke: Smoke, corpus_mb: int) -> dict:
+    """Phase 4: the main path at full size, through the public API."""
+    import numpy as np
+    import torch
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import rans_codec
+    from range_coder_rust_tpu_torch.testing import make_corpus
+
+    n = corpus_mb << 20
+    t0 = time.perf_counter()
+    data = make_corpus(n)
+    smoke.say(f"corpus: {n} bytes Zipf(1.2) seed 0xC0 made in "
+              f"{time.perf_counter() - t0:.3f} s")
+    cfg = rt.CodecConfig(profile="rans16", block_len=32768)
+
+    with Recorder(rans_codec, "rans_encode_tiled") as enc, \
+            Recorder(rans_codec, "rans_decode_tiled") as dec:
+        rt.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = rt.encode(data, alphabet=256, config=cfg, device="cuda")
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = rt.decode(blob, device="cuda")
+        t_dec = time.perf_counter() - t0
+        counts = rt.launch_counts()
+
+    if out.dtype != np.uint8 or out.shape != data.shape:
+        raise AssertionError(f"decoded {out.dtype} {out.shape}")
+    if not np.array_equal(out, data):
+        raise AssertionError(f"{n}-byte round trip is not exact")
+    for name, c in counts.items():
+        if c < 1:
+            raise AssertionError(f"main path never launched {name}")
+    if len(enc.calls) != 1 or len(dec.calls) != 1:
+        raise AssertionError(f"kernel calls: encode {len(enc.calls)}, "
+                             f"decode {len(dec.calls)}")
+    (rows, cum), enc_kw, enc_k = enc.calls[0]
+    dec_args, dec_kw, dec_k = dec.calls[0]
+    g, tile = enc_kw["group_lanes"], enc_kw["tile"]
+    ng, L = rows.shape[0] // g, rows.shape[1]
+    smoke.say(f"main path round trip exact: n={n} NG={ng} G={g} L={L} "
+              f"NT={L // tile}")
+    smoke.say(f"encode wall {t_enc:.4f} s = {n / t_enc / 1e9:.4f} GB/s; "
+              f"decode wall {t_dec:.4f} s = {n / t_dec / 1e9:.4f} GB/s; "
+              f"container {len(blob)} B = {8 * len(blob) / n:.5f} bits/sym; "
+              f"launches {counts}")
+    return {"counts": counts, "enc": (rows, cum, enc_kw, enc_k),
+            "dec": (dec_args, dec_kw, dec_k)}
+
+
+def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
+    """Phase 5: each kernel's main-path output against its plain version
+    on the same inputs, on the card; then both versions' times at the
+    main path's shape (``times``) and for its first group alone."""
+    import torch
+
+    from range_coder_rust_tpu_torch import kernels, testing
+
+    rows, cum, enc_kw, enc_k = main["enc"]
+    (states, region, grp_off, dcum), dec_kw, dec_k = main["dec"]
+    g = enc_kw["group_lanes"]
+    ng = rows.shape[0] // g
+    enc_p, enc_plain_ms = plain_wall(
+        lambda: kernels.rans_encode_plain(rows, cum, **enc_kw))
+    dec_p, dec_plain_ms = plain_wall(lambda: kernels.rans_decode_plain(
+        states, region, grp_off, dcum, **dec_kw))
+    err = {"rans_encode": testing.encode_err(enc_k, enc_p),
+           "rans_decode": testing.decode_err(dec_k, dec_p)}
+    # the decode's inputs are what the encode wrote: the same states, the
+    # same region, and group offsets from the same sizes
+    sizes_off = torch.cat([enc_p[1].new_zeros(1, dtype=torch.int64),
+                           enc_p[1].sum(1).cumsum(0)])
+    if (any(err.values()) or not torch.equal(states, enc_p[0])
+            or not torch.equal(grp_off, sizes_off)
+            or not torch.equal(region, enc_p[2])):
+        raise AssertionError(f"main path kernels != plain versions: {err}")
+    smoke.say(f"main path kernels == plain versions on the card: NG={ng} "
+              f"rows={tuple(rows.shape)} region_hw={region.numel()} "
+              f"grp_off={grp_off.tolist()}")
+
+    times = {
+        "rans_encode": (cuda_ms(lambda: kernels.rans_encode_tiled(
+            rows, cum, **enc_kw)), enc_plain_ms),
+        "rans_decode": (cuda_ms(lambda: kernels.rans_decode_tiled(
+            states, region, grp_off, dcum, **dec_kw)), dec_plain_ms),
+    }
+    # the first group alone: its rows, and its preamble and region
+    rows1, states1, off1 = rows[:g], states[:g], grp_off[:2]
+    one = {
+        "rans_encode": (lambda: kernels.rans_encode_tiled(rows1, cum, **enc_kw),
+                        lambda: kernels.rans_encode_plain(rows1, cum, **enc_kw),
+                        testing.encode_err),
+        "rans_decode": (lambda: kernels.rans_decode_tiled(
+                            states1, region, off1, dcum, **dec_kw),
+                        lambda: kernels.rans_decode_plain(
+                            states1, region, off1, dcum, **dec_kw),
+                        testing.decode_err),
+    }
+    for name, (kern, plain, diff) in one.items():
+        e = diff(kern(), plain())
+        if e:
+            raise AssertionError(f"{name} first group: kernel != plain ({e})")
+        err[name] = max(err[name], e)
+        k_ms, p_ms = times[name]
+        smoke.say(f"{name} main path NG={ng} G={g} L={rows.shape[1]}: "
+                  f"kernel {k_ms:.4f} ms, plain PyTorch on the card "
+                  f"{p_ms:.4f} ms")
+        smoke.say(f"{name} first group G={g} L={rows.shape[1]}: kernel "
+                  f"{cuda_ms(kern):.4f} ms, plain PyTorch on the card "
+                  f"{plain_wall(plain)[1]:.4f} ms")
+    return {"times": times, "err": err}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--corpus-mb", type=int, default=256,
+                    help="main-path corpus size in MiB (default 256)")
+    args = ap.parse_args()
+    if not (ROOT / PKG / "csrc").is_dir():
+        print(f"chip_smoke.py: {PKG}/ not found beside this script; run it "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+
+    card = card_line()
+    print(card, flush=True)
+    smoke = Smoke(card)
+    smoke.say(f"device {torch.cuda.get_device_name(0)}, count "
+              f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+              f"CUDA {torch.version.cuda}")
+
+    from range_coder_rust_tpu_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    smoke.say(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s "
+              f"({lib_path.relative_to(ROOT)})")
+    ptxas = lib_path.parent / "ptxas.txt"
+    if ptxas.exists():
+        for line in ptxas.read_text().splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill")):
+                smoke.say(f"ptxas: {line.strip()}")
+
+    err = check_kernels(smoke)
+    main = main_path(smoke, args.corpus_mb)
+    vs = main_path_vs_plain(smoke, main)
+    for name, e in vs["err"].items():
+        err[name] = max(err[name], e)
+
+    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
+        raise AssertionError("the port imported jax")
+    kernels_line = {"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": main["counts"][name],
+         "max_abs_err": err[name], "ms": vs["times"][name][0],
+         "plain_ms": vs["times"][name][1]}
+        for name in ("rans_encode", "rans_decode")]}
+    print(json.dumps(kernels_line), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

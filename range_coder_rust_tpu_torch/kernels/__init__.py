@@ -1,0 +1,37 @@
+"""Hand-written CUDA kernels for the rans16 profile, each beside its plain
+PyTorch version.
+
+Each wrapper runs the plain version for a CPU tensor and launches its
+kernel (``csrc/*.cu``, built at first use by ``_build.py``) for a CUDA
+tensor; it counts its kernel launches in ``<wrapper>.launches``.
+"""
+
+from .rans_decode import rans_decode_plain, rans_decode_tiled
+from .rans_encode import rans_encode_plain, rans_encode_tiled, tile_steps_for
+from .vreg import prep_cum_vreg
+
+#: the kernel wrappers whose launches are counted, by kernel name
+WRAPPERS = {"rans_encode": rans_encode_tiled, "rans_decode": rans_decode_tiled}
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel name."""
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "WRAPPERS",
+    "launch_counts",
+    "prep_cum_vreg",
+    "rans_decode_plain",
+    "rans_decode_tiled",
+    "rans_encode_plain",
+    "rans_encode_tiled",
+    "reset_launch_counts",
+    "tile_steps_for",
+]

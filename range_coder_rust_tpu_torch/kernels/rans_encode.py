@@ -1,0 +1,120 @@
+"""rans16 encode: the CUDA kernel's wrapper and its plain PyTorch version.
+
+Replaces the Pallas kernel ``_rans_encode_kernel`` of
+``range_coder_rust_tpu/kernels/rans_encode.py`` (wrapper
+``rans_encode_tiled``).  The kernel is ``csrc/rans_encode.cu``; its header
+says what bounds it on the H100 and what its design does about that.
+
+Both versions take lane-major symbol rows ``(NG * G, L)`` (lane ``l`` of
+group ``g`` is row ``g * G + l``) and the padded cum table of
+:func:`..kernels.vreg.prep_cum_vreg`, and return
+
+* ``states`` ``(NG * G,)`` int64: each lane's final state, the preamble;
+* ``sizes`` ``(NG, L // tile)`` int32: per-tile region sizes in halfwords,
+  in time order;
+* ``region`` int16: the emitted halfwords of every group, group after
+  group, each in (step ascending, lane ascending) order.  Only the first
+  ``sizes.sum()`` entries are the region; the kernel's buffer is sized for
+  the worst case (one halfword per symbol) so that it never synchronises
+  to learn the total.
+
+Per group this is exactly ``range_coder_rust_tpu.rans.encode_lanes``:
+the region is its ``regions`` concatenated, and the sizes are its counts
+summed per tile.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: per-tile region capacity in halfwords, as in the reference: it fixes
+#: the steps per tile, and so the tile count NT the container records
+CAP_HW = 65536
+
+
+def tile_steps_for(group_lanes: int) -> int:
+    """Steps per tile for a group width (the container's per-tile
+    bookkeeping unit)."""
+    return max(1, CAP_HW // group_lanes)
+
+
+def _check_inputs(rows: torch.Tensor, cum: torch.Tensor, group_lanes: int,
+                  tile: int) -> None:
+    if rows.dim() != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be 2-D int32, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if cum.shape != (1024,) or cum.dtype != torch.int32:
+        raise ValueError("cum must be the (1024,) int32 padded table")
+    if cum.device != rows.device:
+        raise ValueError("rows and cum must be on one device")
+    B, L = rows.shape
+    if B == 0 or B % group_lanes or group_lanes % 128:
+        raise ValueError(f"{B} rows do not make groups of {group_lanes}")
+    if tile < 1 or L % tile:
+        raise ValueError(f"lane length {L} is not a multiple of tile {tile}")
+
+
+def rans_encode_plain(rows: torch.Tensor, cum: torch.Tensor, *,
+                      group_lanes: int, tile: int):
+    """The encode in plain PyTorch on int64, lane-vectorized, one Python
+    iteration per step."""
+    _check_inputs(rows, cum, group_lanes, tile)
+    B, L = rows.shape
+    ng = B // group_lanes
+    cum64 = cum.to(torch.int64)
+    sym = rows.to(torch.int64)
+    cs_all = cum64[sym]
+    c_all = cum64[sym + 1] - cs_all
+    x = torch.full((B,), 1 << 32, dtype=torch.int64, device=rows.device)
+    park = torch.empty((L, B), dtype=torch.int64, device=rows.device)
+    for t in range(L - 1, -1, -1):
+        c = c_all[:, t]
+        emit = (x >> 32) >= c
+        park[t] = (x & 0xFFFF) | (emit.to(torch.int64) << 16)
+        x = torch.where(emit, x >> 16, x)
+        q = torch.div(x, c, rounding_mode="floor")
+        x = (q << 16) | (cs_all[:, t] + x - q * c)
+    # (step, lane) order within each group is region order
+    grouped = park.view(L, ng, group_lanes).permute(1, 0, 2)
+    flags = (grouped >> 16) != 0
+    sizes = flags.reshape(ng, L // tile, tile * group_lanes).sum(-1)
+    hw = grouped[flags] & 0xFFFF
+    region = torch.where(hw >= 0x8000, hw - 0x10000, hw).to(torch.int16)
+    return x, sizes.to(torch.int32), region
+
+
+def rans_encode_tiled(rows: torch.Tensor, cum: torch.Tensor, *,
+                      group_lanes: int, tile: int):
+    """Encode lane-major symbol rows: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor.  See the module docstring."""
+    if rows.device.type == "cpu":
+        return rans_encode_plain(rows, cum, group_lanes=group_lanes,
+                                 tile=tile)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no rans16 encode for device {rows.device}")
+    _check_inputs(rows, cum, group_lanes, tile)
+    from ._build import check, library
+
+    # keep the contiguous tensors referenced until the launch is queued
+    rows, cum = rows.contiguous(), cum.contiguous()
+    B, L = rows.shape
+    ng, nt = B // group_lanes, L // tile
+    dev = rows.device
+    states = torch.empty(B, dtype=torch.int64, device=dev)
+    sizes = torch.empty((ng, nt), dtype=torch.int32, device=dev)
+    offs = torch.empty(ng * nt + 1, dtype=torch.int64, device=dev)
+    park = torch.empty(B * L, dtype=torch.int32, device=dev)
+    region = torch.empty(B * L, dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().rc_rans_encode(
+            rows.data_ptr(), cum.data_ptr(), states.data_ptr(),
+            sizes.data_ptr(), offs.data_ptr(), park.data_ptr(),
+            region.data_ptr(), ng, group_lanes, L, tile, stream)
+    check(err, "rans16 encode kernel")
+    rans_encode_tiled.launches += 1
+    return states, sizes, region
+
+
+#: launches of the CUDA kernel (the plain version does not count)
+rans_encode_tiled.launches = 0

@@ -1,0 +1,129 @@
+"""Seeded inputs and the kernel-against-plain check, shared by the port's
+tests and ``chip_smoke.py``.
+
+:data:`KERNEL_CASES` names the small geometries every CUDA kernel is held
+against its plain PyTorch version on: a 2048-lane group, an odd tile
+length across two 128-lane groups, non-pow2 and wide alphabets, leading
+zero-frequency symbols, a symbol with c > 2^15, two tiles per group and
+two lanes per decode thread.  All outputs are integers, so every
+comparison is exact.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import kernels, rans_codec
+from .models.table import table_from_data_pow2
+
+
+def zipf(n: int, a: int, seed: int, alpha: float = 1.2,
+         dtype=np.int32) -> np.ndarray:
+    """``n`` Zipf(``alpha``) symbols over ``[0, a)`` from
+    ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, a + 1) ** alpha
+    p /= p.sum()
+    return rng.choice(a, size=n, p=p).astype(dtype)
+
+
+def make_corpus(n_bytes: int, seed: int = 0xC0) -> np.ndarray:
+    """Zipf(1.2) bytes: the corpus generator of the JAX package's
+    ``bench.py`` (``make_corpus``), as ``uint8``."""
+    return zipf(n_bytes, 256, seed, dtype=np.uint8)
+
+
+KERNEL_CASES = ["G2048_L64_NG2", "odd_tile_G128_L63", "A129", "A400", "A1023",
+                "leading_zero_freq", "c_over_2^15", "G256_L512_two_tiles",
+                "G4096_L16_two_lanes_per_thread"]
+
+
+def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
+    """(rows ``(NG * G, L)`` int32, G, alphabet) of a named case."""
+    g, L, ng, a = 128, 64, 2, 256
+    if name == "G2048_L64_NG2":
+        g = 2048
+        data = zipf(ng * g * L, a, 1)
+    elif name == "odd_tile_G128_L63":
+        L = 63
+        data = zipf(ng * g * L, a, 2)
+    elif name in ("A129", "A400", "A1023"):
+        a = int(name[1:])
+        data = zipf(ng * g * L, a, a, alpha=0.9)
+    elif name == "leading_zero_freq":
+        data = zipf(ng * g * L, 240, 3) + 16  # symbols 0..15 absent
+    elif name == "c_over_2^15":
+        rng = np.random.default_rng(4)
+        a = 32
+        data = np.where(rng.random(ng * g * L) < 0.75, 5,
+                        rng.integers(0, a, ng * g * L)).astype(np.int32)
+    elif name == "G256_L512_two_tiles":
+        g, L, ng = 256, 512, 1
+        data = zipf(ng * g * L, a, 5)
+    elif name == "G4096_L16_two_lanes_per_thread":
+        g, L, ng = 4096, 16, 3
+        data = zipf(ng * g * L, a, 6)
+    else:
+        raise KeyError(name)
+    return data.reshape(-1, L), g, a
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{a.dtype} {tuple(a.shape)} vs "
+                             f"{b.dtype} {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    d = a.to(torch.int64) - b.to(a.device, torch.int64)
+    return int(d.abs().max())
+
+
+def encode_err(kernel_out, plain_out) -> int:
+    """Largest absolute difference between the kernel's and the plain
+    version's ``(states, sizes, region)``.  The kernel's region buffer is
+    sized for the worst case; its first ``sizes.sum()`` halfwords count."""
+    (st_k, sz_k, rg_k), (st_p, sz_p, rg_p) = kernel_out, plain_out
+    n = int(sz_k.sum())
+    return max(_max_abs(st_k, st_p), _max_abs(sz_k, sz_p),
+               _max_abs(rg_k[:n], rg_p))
+
+
+def decode_err(kernel_out: torch.Tensor, plain_out: torch.Tensor) -> int:
+    """Largest absolute difference between two decodes' symbols."""
+    return _max_abs(kernel_out, plain_out)
+
+
+def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device):
+    """Encode ``rows`` and decode the result with each CUDA kernel on
+    ``device`` and with its plain version on the CPU, from the same
+    inputs; the decode starts from the plain encode's output.
+
+    Returns ``({kernel name: max_abs_err}, plain (states, sizes, region),
+    plain symbols)``.  Raises ``AssertionError`` unless the plain decode
+    gives ``rows`` back."""
+    L = rows.shape[1]
+    table = table_from_data_pow2(rows, a, 16)
+    tile, _ = rans_codec._tile_geometry(L, g)
+    cum_c = rans_codec.cum_table(table.cum, "cpu")
+    cum_d = cum_c.to(device)
+    rows_c = torch.from_numpy(rows)
+    enc_k = kernels.rans_encode_tiled(rows_c.to(device), cum_d,
+                                      group_lanes=g, tile=tile)
+    enc_p = kernels.rans_encode_tiled(rows_c, cum_c, group_lanes=g, tile=tile)
+    st_p, sz_p, rg_p = enc_p
+    grp_off = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(sz_p.sum(1).numpy())]).astype(np.int64))
+    kw = dict(group_lanes=g, block_len=L, a_count=a,
+              out_dtype=rans_codec._TORCH_OUT[rans_codec._np_dtype(a)])
+    dec_k = kernels.rans_decode_tiled(
+        st_p.to(device), rg_p.to(device), grp_off.to(device), cum_d, **kw)
+    dec_p = kernels.rans_decode_tiled(st_p, rg_p, grp_off, cum_c, **kw)
+    back = dec_p.numpy().view(rans_codec._np_dtype(a)).astype(np.int32)
+    if not np.array_equal(back, rows):
+        raise AssertionError("plain decode does not give the rows back")
+    errs = {"rans_encode": encode_err(enc_k, enc_p),
+            "rans_decode": decode_err(dec_k, dec_p)}
+    return errs, enc_p, dec_p

@@ -1,0 +1,88 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on a card.
+
+Marked ``gpu``: every test skips without a CUDA card (the kernels have no
+CPU mode).  This file imports no jax, so it also runs where only PyTorch
+is installed; the repository's root conftest imports jax, so on such a
+machine run it as
+
+    python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
+
+Outputs are integers: kernel and plain version must be identical, and
+both must equal the NumPy spec ``range_coder_rust_tpu.rans.encode_lanes``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from range_coder_rust_tpu import rans
+from range_coder_rust_tpu_torch import kernels
+from range_coder_rust_tpu_torch import rans_codec as t_codec
+from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
+from range_coder_rust_tpu_torch.testing import (
+    KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_cuda_kernels_match_plain_and_spec(name, cuda_device):
+    rows, g, a = kernel_case(name)
+    errs, (st_p, sz_p, rg_p), _ = kernels_vs_plain(rows, g, a, cuda_device)
+    assert errs == {"rans_encode": 0, "rans_decode": 0}
+    table = table_from_data_pow2(rows, a, 16)
+    s_states, s_regions, _ = rans.encode_lanes(rows[:g], table.c, table.cum)
+    np.testing.assert_array_equal(st_p[:g].numpy().view(np.uint64), s_states)
+    n0 = int(sz_p[0].sum())
+    assert rg_p[:n0].numpy().tobytes() == b"".join(
+        r.astype("<u2").tobytes() for r in s_regions)
+
+
+def test_cuda_api_roundtrip_counts_launches(cuda_device):
+    import range_coder_rust_tpu_torch as rt
+
+    data = zipf(2048 * 100 + 17, 256, 7, dtype=np.uint8)
+    cfg = rt.CodecConfig(profile="rans16")
+    rt.reset_launch_counts()
+    blob = rt.encode(data, config=cfg, device=cuda_device)
+    assert blob == rt.encode(data, config=cfg, device="cpu")
+    out = rt.decode(blob, device=cuda_device)
+    assert rt.launch_counts() == {"rans_encode": 1, "rans_decode": 1}
+    np.testing.assert_array_equal(out, data)
+
+
+def test_cuda_decode_bounds_match_plain(cuda_device):
+    """Offsets outside the region are clamped to it and reads stop at the
+    group's end, in the kernel exactly as in the plain version."""
+    rows, g, a = kernel_case("odd_tile_G128_L63")
+    L = rows.shape[1]
+    table = table_from_data_pow2(rows, a, 16)
+    cum_c = t_codec.cum_table(table.cum, "cpu")
+    st, sz, rg = kernels.rans_encode_tiled(
+        torch.from_numpy(rows), cum_c, group_lanes=g, tile=L)
+    n0 = int(sz[0].sum())
+    kw = dict(group_lanes=g, block_len=L, a_count=a, out_dtype=torch.uint8)
+    for off in ([0, n0 // 2, rg.numel()], [-7, n0, 1 << 40],
+                [n0, 3, rg.numel() + 5]):
+        grp_off = torch.tensor(off, dtype=torch.int64)
+        dec_p = kernels.rans_decode_tiled(st, rg, grp_off, cum_c, **kw)
+        dec_k = kernels.rans_decode_tiled(
+            st.to(cuda_device), rg.to(cuda_device), grp_off.to(cuda_device),
+            cum_c.to(cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dec_k.cpu(), dec_p), off
+
+
+def test_cuda_encode_symbols_outside_table_do_not_fault(cuda_device):
+    rows = torch.full((128, 8), 5000, dtype=torch.int32, device=cuda_device)
+    rows[:, ::2] = -3
+    cum = t_codec.cum_table(np.array([0, 1 << 15, 1 << 16]), cuda_device)
+    kernels.rans_encode_tiled(rows, cum, group_lanes=128, tile=8)
+    torch.cuda.synchronize()  # raises if the kernel faulted
