@@ -11,17 +11,22 @@ Phases (any failure ends the run with a non-zero exit):
    tensors, identical output required) over the small geometries of
    ``range_coder_rust_tpu_torch.testing.KERNEL_CASES``: odd tile lengths,
    wide and non-pow2 alphabets, leading zero-frequency symbols, a symbol
-   with c > 2^15;
+   with c > 2^15, and the decode's staged u16 stores with a ragged last
+   stage, its direct-store variant and its ring read past its window;
 4. the main path at full size: ``api.encode`` / ``api.decode`` of a 256 MB
    Zipf(1.2) byte corpus with ``CodecConfig(profile="rans16",
    block_len=32768)`` (4 groups of 2048 lanes), an exact round trip, and
    both kernels' launch counts over that run;
 5. each kernel's output on the inputs the main path gave it (recorded as
    it ran) against its plain version on the same inputs on the card, and
-   both versions' times there and for the first group alone.
+   both versions' times there and for the first group alone, beside each
+   kernel's bound: the larger of its bytes (each input read once, each
+   output written once) over 3.35 TB/s and its 32-bit integer operations
+   over 16.7 TOP/s, from this run's inputs.
 
 It prints one JSON line on the kernels, then, as its last line,
-``{"ok": true, "device": {...}}``.  It imports no jax.
+``{"ok": true, "device": {...}}``.  It imports neither jax nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -43,6 +48,36 @@ SOURCES = {
     "rans_encode": f"{PKG}/csrc/rans_encode.cu",
     "rans_decode": f"{PKG}/csrc/rans_decode.cu",
 }
+#: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and 32-bit
+#: integer operations/s: 64 INT32 lanes a SM (NVIDIA's Hopper architecture
+#: white paper; half the 128 FP32 lanes behind the data sheet's 67 TFLOP/s
+#: float32) x 132 SMs x 1.98 GHz boost clock
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 132 * 64 * 1.98e9
+#: integer operations per symbol of the coder's arithmetic (encode: the
+#: divide counted as one, multiply, subtract, shift, add, flag; decode:
+#: mask, lookup, multiply, add, subtract, flag) and per emitted or
+#: refilled halfword (shift and or)
+OPS_PER_SYMBOL = {"rans_encode": 6, "rans_decode": 6}
+OPS_PER_HALFWORD = 2
+
+
+def symbol_bytes(a_count: int) -> int:
+    """Bytes a symbol of an alphabet of ``a_count`` needs."""
+    return 1 if a_count <= 256 else 2 if a_count <= 65536 else 4
+
+
+def bound(name: str, nbytes: int, n_symbols: int, n_halfwords: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for a kernel's work, moving ``nbytes`` in all."""
+    ops = OPS_PER_SYMBOL[name] * n_symbols + OPS_PER_HALFWORD * n_halfwords
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def card_line() -> str:
@@ -219,6 +254,27 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
         "rans_decode": (cuda_ms(lambda: kernels.rans_decode_tiled(
             states, region, grp_off, dcum, **dec_kw)), dec_plain_ms),
     }
+    # the bounds, from the tensors of this run: the encode reads the
+    # symbols at the width the alphabet needs (the int32 rows are a staging
+    # type) and the table, and writes states, sizes and the region's used
+    # part; the decode reads states, region, offsets and table and writes
+    # the symbols
+    n_sym, n_hw = rows.numel(), region.numel()
+    sym_bytes = n_sym * symbol_bytes(dec_kw["a_count"])
+    bounds = {
+        "rans_encode": bound("rans_encode", sym_bytes + nbytes(
+            cum, enc_k[0], enc_k[1], region), n_sym, n_hw),
+        "rans_decode": bound("rans_decode", nbytes(
+            states, region, grp_off, dcum, dec_k), n_sym, n_hw),
+    }
+    L = rows.shape[1]
+    plan = kernels.decode_plan(g, dec_kw["a_count"], dec_kw["out_dtype"])
+    smoke.say(f"rans_decode plan at G={g}: "
+              f"{'staged' if plan['staged'] else 'direct-store'} variant, "
+              f"{plan['threads']} threads, ring {plan['ring_hw']} "
+              f"halfwords, {plan['smem_bytes']} B dynamic shared memory per "
+              f"block; "
+              f"{times['rans_decode'][0] / L * 1e6:.2f} ns per step")
     # the first group alone: its rows, and its preamble and region
     rows1, states1, off1 = rows[:g], states[:g], grp_off[:2]
     one = {
@@ -231,19 +287,22 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
                             states1, region, off1, dcum, **dec_kw),
                         testing.decode_err),
     }
+    first = {}
     for name, (kern, plain, diff) in one.items():
         e = diff(kern(), plain())
         if e:
             raise AssertionError(f"{name} first group: kernel != plain ({e})")
         err[name] = max(err[name], e)
         k_ms, p_ms = times[name]
-        smoke.say(f"{name} main path NG={ng} G={g} L={rows.shape[1]}: "
-                  f"kernel {k_ms:.4f} ms, plain PyTorch on the card "
-                  f"{p_ms:.4f} ms")
-        smoke.say(f"{name} first group G={g} L={rows.shape[1]}: kernel "
-                  f"{cuda_ms(kern):.4f} ms, plain PyTorch on the card "
-                  f"{plain_wall(plain)[1]:.4f} ms")
-    return {"times": times, "err": err}
+        b_ms, b_by = bounds[name]
+        smoke.say(f"{name} main path NG={ng} G={g} L={L}: kernel "
+                  f"{k_ms:.4f} ms, plain PyTorch on the card {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+        first[name] = (cuda_ms(kern), plain_wall(plain)[1])
+        smoke.say(f"{name} first group G={g} L={L}: kernel "
+                  f"{first[name][0]:.4f} ms, plain PyTorch on the card "
+                  f"{first[name][1]:.4f} ms")
+    return {"times": times, "first": first, "bounds": bounds, "err": err}
 
 
 def main() -> int:
@@ -277,7 +336,7 @@ def main() -> int:
     _build.library()
     smoke.say(f"kernels built and loaded in {time.perf_counter() - t0:.3f} s "
               f"({lib_path.relative_to(ROOT)})")
-    ptxas = lib_path.parent / "ptxas.txt"
+    ptxas = lib_path.parent / "ptxas.txt"  # written by the same build
     if ptxas.exists():
         for line in ptxas.read_text().splitlines():
             if any(k in line for k in ("entry function", "registers", "spill")):
@@ -289,13 +348,19 @@ def main() -> int:
     for name, e in vs["err"].items():
         err[name] = max(err[name], e)
 
-    if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-        raise AssertionError("the port imported jax")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "range_coder_rust_tpu"))
+    if foreign:
+        raise AssertionError(f"the port imported jax or the JAX package: "
+                             f"{foreign[:5]}")
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name],
          "replaces": REPLACES[name], "launches": main["counts"][name],
          "max_abs_err": err[name], "ms": vs["times"][name][0],
-         "plain_ms": vs["times"][name][1]}
+         "plain_ms": vs["times"][name][1],
+         "bound_ms": vs["bounds"][name][0], "bound_by": vs["bounds"][name][1],
+         "library_ms": None, "first_group_ms": vs["first"][name][0],
+         "first_group_plain_ms": vs["first"][name][1]}
         for name in ("rans_encode", "rans_decode")]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,13 @@
 The port of ``range_coder_rust_tpu`` (written in Pallas for a TPU) to
 PyTorch with hand-written CUDA kernels for Hopper (H100).  It writes and
 reads the same containers as ``range_coder_rust_tpu``, which stays the
-reference, and uses only that package's framework-free modules
-(``format``, ``errors``, ``rans``).
+reference.  It imports nothing of that package: it keeps its own copies of
+what it needs (``format``, ``errors``, the NumPy table builder).
 
 * :mod:`.api` — ``CodecConfig``, ``encode``, ``decode``, ``decode_bytes``;
 * :mod:`.rans_codec` — host orchestration of the rans16 profile;
+* :mod:`.format`, :mod:`.errors` — the container format and the typed
+  errors (same bytes, same class names as the reference);
 * :mod:`.kernels` — the CUDA kernels' wrappers, their plain PyTorch
   versions and their launch counts;
 * :mod:`.models.table` — the host-side pow2 table builder.

@@ -1,10 +1,10 @@
 """High-level one-call API: ``encode(data) -> bytes``, ``decode(blob) -> data``.
 
 The PyTorch counterpart of ``range_coder_rust_tpu/api.py``.  It takes the
-same ``CodecConfig``, writes the same container bytes and raises the same
-typed errors (``range_coder_rust_tpu.errors``).  Each entry point takes a
-``device`` (default ``"cuda"``): the coder runs its CUDA kernels there, or
-their plain PyTorch versions when the device is the CPU.
+same ``CodecConfig``, writes the same container bytes and raises typed
+errors of the same names, the port's own (:mod:`.errors`).  Each entry
+point takes a ``device`` (default ``"cuda"``): the coder runs its CUDA
+kernels there, or their plain PyTorch versions when the device is the CPU.
 
 This slice ports the rans16 profile with one shared order-0 table.  The
 paths it does not cover raise ``NotImplementedError`` naming their
@@ -20,10 +20,9 @@ from typing import Optional
 
 import numpy as np
 
-from range_coder_rust_tpu import format as fmt
-from range_coder_rust_tpu.errors import ConfigError, ZeroFrequency
-
+from . import format as fmt
 from . import rans_codec
+from .errors import ConfigError, ZeroFrequency
 from .models.table import Pow2Table
 from .rans_codec import not_ported
 
@@ -46,7 +45,7 @@ class CodecConfig:
     #: adaptive rans16: one order-0 table per group
     per_group_tables: bool = False
     #: rans16 group width (lanes per group, a power of two in
-    #: [128, 65536]).  None = rans.GROUP_LANES (2048).
+    #: [128, 65536]).  None = rans_codec.GROUP_LANES (2048).
     group_lanes: Optional[int] = None
     #: rans16 tile random access: lane states every ``sync_tiles`` tiles
     sync_tiles: int = 0

@@ -1,0 +1,262 @@
+"""The container format, the port's own copy.
+
+A copy of ``range_coder_rust_tpu/format.py`` that raises the port's typed
+errors: ``pack`` and ``unpack`` write and read the same bytes as the JAX
+package's (``tests/test_torch_import.py`` holds the two equal), so each
+package reads the other's containers.
+
+The reference emits a bare byte stream with **no framing at all**: the
+caller must carry the symbol count, the model, and stream boundaries
+out-of-band (reference examples/sample_impl.rs:113-120 passes the count and
+the table by hand; SURVEY.md §3 Stack E).  Block-parallel coding needs a
+container: this module defines a compact, versioned, self-describing layout
+that records everything the decoder needs, localizes corruption to one
+block (per-block CRC32), and makes any block independently decodable (the
+checkpoint/resume property, SURVEY.md §5).
+
+Layout (all integers little-endian):
+
+    offset  size  field
+    0       4     magic  b"RCT1"
+    4       1     version (= 1)
+    5       1     flags   bit0 per-block tables, bit1 per-block CRC32,
+                          bit2 rans16 profile
+    6       1     k       (total_freq = 2**k)
+    7       1     log2(lanes per group) for rans16, else 0
+    8       4     alphabet size A
+    12      4     block length L (symbols per block / per rans16 lane)
+    16      8     total symbol count N (last block may be partial)
+    24      4     block count B (= ceil(N / L), >= 1; rans16: group count,
+                  = ceil(N / (G * L)))
+    28      4*B   per-block payload lengths (bytes, incl. 8-byte flush;
+                  rans16: per-group stream lengths incl. the 8*G preamble)
+    ...     table c values, uint16[A] if k < 16 else uint32[A]:
+              shared mode: one table; per-block mode: B tables
+    ...     per-block CRC32, uint32[B]            (if flag bit1)
+    ...     payloads, concatenated in block order
+
+The pad symbol for a partial last block is the table's most frequent
+symbol; N truncates it away on decode.
+
+The rans16 profile (flag bit2) reuses the same container with payload =
+one interleaved group stream per "block" (rans.py layout: 8-byte-per-lane
+state preamble + halfword region section).  ``k`` must be 16; per-block mode
+stores one table PER GROUP (the adaptive rans16 profile).
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from dataclasses import dataclass
+from typing import List, Optional
+
+import numpy as np
+
+from .errors import ChecksumMismatch, InvalidHeader
+
+MAGIC = b"RCT1"
+#: container version.  2 = round-3 rans16 payload layout (per-tile region
+#: sizes + 48-bit preamble states); version-1 planar/raw containers are
+#: still readable (their payload layout never changed), version-1 rans16
+#: containers are rejected with a clear error.  NEW containers of every
+#: profile write version 2 on purpose: pre-1.0 there is one current
+#: writer version, and readers accept both.
+VERSION = 2
+
+FLAG_PER_BLOCK_TABLES = 1 << 0
+FLAG_CRC32 = 1 << 1
+FLAG_RANS16 = 1 << 2
+#: raw (un-normalized) u32 table: total_freq = sum(c), any u32 value —
+#: the reference's PModel contract (src/pmodel.rs:6-10); k is stored as 0
+FLAG_RAW_TOTAL = 1 << 3
+
+_HEADER = struct.Struct("<4sBBBBIIQI")  # through block count B
+HEADER_BYTES = _HEADER.size
+
+
+@dataclass(frozen=True)
+class Container:
+    """Parsed container: header fields + raw sections."""
+
+    k: int
+    alphabet: int
+    block_len: int
+    n_symbols: int
+    lengths: np.ndarray  # (B,) int64
+    tables_c: np.ndarray  # shared: (A,) uint32; per-block: (B, A) uint32
+    per_block_tables: bool
+    checksums: Optional[np.ndarray]  # (B,) uint32 or None
+    payloads: List[bytes]
+    profile: str = "planar"  # "planar" | "rans16"
+    group_lanes: int = 0  # lanes per group (rans16 only)
+
+    @property
+    def n_blocks(self) -> int:
+        return int(self.lengths.shape[0])
+
+
+def _table_dtype(k: int) -> np.dtype:
+    # c values sum to 2**k; a single value can equal 2**16 when k == 16.
+    # k == 0 = raw mode: arbitrary u32 counts.
+    return np.dtype("<u2") if 0 < k < 16 else np.dtype("<u4")
+
+
+def pack(
+    *,
+    k: int,
+    alphabet: int,
+    block_len: int,
+    n_symbols: int,
+    payloads: List[bytes],
+    tables_c: np.ndarray,
+    per_block_tables: bool = False,
+    with_checksums: bool = True,
+    profile: str = "planar",
+    group_lanes: int = 0,
+) -> bytes:
+    """Assemble a container from per-block payloads and table(s)."""
+    b = len(payloads)
+    if b < 1:
+        raise ValueError("need at least one block")
+    flags = (FLAG_PER_BLOCK_TABLES if per_block_tables else 0) | (
+        FLAG_CRC32 if with_checksums else 0
+    )
+    raw_total = k == 0
+    if raw_total:
+        if profile != "planar" or per_block_tables:
+            raise ValueError("raw-total tables: shared planar mode only")
+        flags |= FLAG_RAW_TOTAL
+    glog = 0
+    if profile == "rans16":
+        if k != 16:
+            raise ValueError("rans16 profile requires k == 16")
+        if group_lanes < 1 or group_lanes & (group_lanes - 1):
+            raise ValueError(f"group_lanes {group_lanes} must be a power of 2")
+        flags |= FLAG_RANS16
+        glog = group_lanes.bit_length() - 1
+    elif profile != "planar":
+        raise ValueError(f"unknown profile {profile!r}")
+    tables_c = np.asarray(tables_c, dtype=np.uint32)
+    want_shape = (b, alphabet) if per_block_tables else (alphabet,)
+    if tables_c.shape != want_shape:
+        raise ValueError(f"tables_c shape {tables_c.shape} != {want_shape}")
+
+    out = bytearray()
+    out += _HEADER.pack(
+        MAGIC, VERSION, flags, k, glog, alphabet, block_len, n_symbols, b
+    )
+    lengths = np.array([len(p) for p in payloads], dtype="<u4")
+    out += lengths.tobytes()
+    out += np.ascontiguousarray(tables_c, dtype=_table_dtype(k)).tobytes()
+    if with_checksums:
+        crcs = np.array([zlib.crc32(p) for p in payloads], dtype="<u4")
+        out += crcs.tobytes()
+    for p in payloads:
+        out += p
+    return bytes(out)
+
+
+def unpack(blob: bytes, *, verify_checksums: bool = True) -> Container:
+    """Parse + validate a container (typed errors, never panics —
+    SURVEY.md §5 failure-detection requirement)."""
+    if len(blob) < HEADER_BYTES:
+        raise InvalidHeader(f"container too short: {len(blob)} bytes")
+    magic, version, flags, k, glog, alphabet, block_len, n_symbols, b = _HEADER.unpack(
+        blob[:HEADER_BYTES]
+    )
+    if magic != MAGIC:
+        raise InvalidHeader(f"bad magic {magic!r}")
+    if version not in (1, VERSION):
+        raise InvalidHeader(f"unsupported version {version}")
+    if version == 1 and flags & FLAG_RANS16:
+        raise InvalidHeader(
+            "version-1 rans16 container: the rans16 payload layout changed "
+            "in version 2 (per-tile sizes, 48-bit preamble); re-encode"
+        )
+    raw_total = bool(flags & FLAG_RAW_TOTAL)
+    if raw_total:
+        if k != 0:
+            raise InvalidHeader(f"raw-total container with k={k}")
+    elif not 1 <= k <= 16:
+        raise InvalidHeader(f"k={k} out of range [1, 16]")
+    if alphabet < 1 or block_len < 1 or b < 1:
+        raise InvalidHeader(
+            f"bad geometry: alphabet={alphabet} block_len={block_len} blocks={b}"
+        )
+    per_block = bool(flags & FLAG_PER_BLOCK_TABLES)
+    has_crc = bool(flags & FLAG_CRC32)
+    is_rans = bool(flags & FLAG_RANS16)
+    if raw_total and (per_block or is_rans):
+        raise InvalidHeader("raw-total container: shared planar mode only")
+    group_lanes = 0
+    if is_rans:
+        if k != 16:
+            raise InvalidHeader("rans16 container with k != 16")
+        if not 0 < glog <= 16:
+            raise InvalidHeader(f"rans16 container with bad group log {glog}")
+        group_lanes = 1 << glog
+    span = block_len * (group_lanes if is_rans else 1)
+    if n_symbols > b * span:
+        raise InvalidHeader(
+            f"n_symbols={n_symbols} exceeds {b} units x {span}"
+        )
+    if (b - 1) * span >= n_symbols > 0:
+        raise InvalidHeader(
+            f"n_symbols={n_symbols} needs fewer than {b} units of {span}"
+        )
+
+    off = HEADER_BYTES
+
+    def take(n: int, what: str) -> bytes:
+        nonlocal off
+        if off + n > len(blob):
+            raise InvalidHeader(f"container truncated in {what}")
+        chunk = blob[off : off + n]
+        off += n
+        return chunk
+
+    lengths = np.frombuffer(take(4 * b, "lengths"), dtype="<u4").astype(np.int64)
+    tdt = _table_dtype(k)
+    n_tables = b if per_block else 1
+    tables = np.frombuffer(
+        take(tdt.itemsize * alphabet * n_tables, "tables"), dtype=tdt
+    ).astype(np.uint32)
+    tables = tables.reshape(b, alphabet) if per_block else tables.reshape(alphabet)
+    # validate table sums
+    sums = tables.sum(axis=-1, dtype=np.int64)
+    if raw_total:
+        if not np.all((sums >= 1) & (sums < 1 << 32)):
+            raise InvalidHeader(f"raw table total {np.unique(sums)} not in u32")
+    elif not np.all(sums == 1 << k):
+        raise InvalidHeader(f"table sums {np.unique(sums)} != 2**{k}")
+
+    checksums = None
+    if has_crc:
+        checksums = np.frombuffer(take(4 * b, "checksums"), dtype="<u4").copy()
+
+    payloads: List[bytes] = []
+    for i, ln in enumerate(lengths.tolist()):
+        payloads.append(take(int(ln), f"payload {i}"))
+    if off != len(blob):
+        raise InvalidHeader(f"{len(blob) - off} trailing bytes after payloads")
+
+    if has_crc and verify_checksums:
+        for i, p in enumerate(payloads):
+            actual = zlib.crc32(p)
+            if actual != int(checksums[i]):
+                raise ChecksumMismatch(i, int(checksums[i]), actual)
+
+    return Container(
+        k=k,
+        alphabet=alphabet,
+        block_len=block_len,
+        n_symbols=n_symbols,
+        lengths=lengths,
+        tables_c=tables,
+        per_block_tables=per_block,
+        checksums=checksums,
+        payloads=payloads,
+        profile="rans16" if is_rans else "planar",
+        group_lanes=group_lanes,
+    )

@@ -6,7 +6,7 @@ kernel (``csrc/*.cu``, built at first use by ``_build.py``) for a CUDA
 tensor; it counts its kernel launches in ``<wrapper>.launches``.
 """
 
-from .rans_decode import rans_decode_plain, rans_decode_tiled
+from .rans_decode import decode_plan, rans_decode_plain, rans_decode_tiled
 from .rans_encode import rans_encode_plain, rans_encode_tiled, tile_steps_for
 from .vreg import prep_cum_vreg
 
@@ -26,6 +26,7 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "WRAPPERS",
+    "decode_plan",
     "launch_counts",
     "prep_cum_vreg",
     "rans_decode_plain",

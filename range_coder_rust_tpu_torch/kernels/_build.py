@@ -45,6 +45,9 @@ SIGNATURES = {
     # states, region, region_len, grp_off, cum, out, n_groups, group_lanes,
     # block_len, a_count, out_bytes, stream
     "rc_rans_decode": [_P, _P, _I64, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
+    # group_lanes, a_count, out_bytes -> staged, ring_hw, smem, threads
+    # (int *)
+    "rc_rans_decode_plan": [_I, _I, _I, _P, _P, _P, _P],
 }
 
 

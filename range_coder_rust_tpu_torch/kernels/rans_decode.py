@@ -3,7 +3,8 @@
 Replaces the Pallas kernel ``_rans_decode_kernel`` of
 ``range_coder_rust_tpu/kernels/rans_decode.py`` (wrapper
 ``rans_decode_tiled``).  The kernel is ``csrc/rans_decode.cu``; its header
-says what bounds it on the H100 and what its design does about that.
+says what bounds it on the H100 and what its design does about that, and
+:func:`decode_plan` says which of its variants a shape runs.
 
 Both versions take
 
@@ -16,11 +17,13 @@ Both versions take
 
 and return the symbols, lane-major ``(NG * G, L)``, in ``out_dtype``
 (``torch.uint8``, ``torch.int16`` holding u16 bits, or ``torch.int32``).
-Per group this is exactly ``range_coder_rust_tpu.rans.decode_lanes``,
+Per group this is exactly the reference's NumPy spec ``decode_lanes``
+(``range_coder_rust_tpu/rans.py``, named here, never imported),
 whose symbol search is ``searchsorted(cum, slot, 'right') - 1``.  A lane
 that would refill past its group's region reads 0 instead, and offsets
 outside the region are clamped to it: a corrupt input decodes to garbage
-and never reads outside its group.
+and never reads outside its group.  The states are below 2^48 (the
+container's preamble is 48-bit); the CUDA kernel's arithmetic relies on it.
 """
 
 from __future__ import annotations
@@ -127,3 +130,23 @@ def rans_decode_tiled(states: torch.Tensor, region: torch.Tensor,
 
 #: launches of the CUDA kernel (the plain version does not count)
 rans_decode_tiled.launches = 0
+
+
+def decode_plan(group_lanes: int, a_count: int, out_dtype: torch.dtype
+                ) -> dict:
+    """How the CUDA kernel runs a shape on the current card: ``staged``
+    (symbols staged in shared memory and stored 16 bytes a row) or the
+    direct-store variant, the refill ring's halfwords, the dynamic shared
+    memory and the threads per block.  Needs the card (it builds the
+    library)."""
+    import ctypes
+
+    from ._build import check, library
+
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    check(library().rc_rans_decode_plan(
+        group_lanes, a_count, _OUT_BYTES[out_dtype],
+        *(ctypes.byref(v) for v in vals)), "rans16 decode plan")
+    staged, ring_hw, smem, threads = (v.value for v in vals)
+    return {"staged": bool(staged), "ring_hw": ring_hw, "smem_bytes": smem,
+            "threads": threads}

@@ -18,7 +18,8 @@ group ``g`` is row ``g * G + l``) and the padded cum table of
   the worst case (one halfword per symbol) so that it never synchronises
   to learn the total.
 
-Per group this is exactly ``range_coder_rust_tpu.rans.encode_lanes``:
+Per group this is exactly the reference's NumPy spec ``encode_lanes``
+(``range_coder_rust_tpu/rans.py``, named here, never imported):
 the region is its ``regions`` concatenated, and the sizes are its counts
 summed per tile.
 """

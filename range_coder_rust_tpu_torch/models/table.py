@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from range_coder_rust_tpu.errors import TableError
+from ..errors import TableError
 
 
 def normalize_pow2_np(counts: np.ndarray, k: int) -> np.ndarray:

@@ -32,16 +32,16 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from range_coder_rust_tpu import format as fmt
-from range_coder_rust_tpu import rans
-from range_coder_rust_tpu.errors import ConfigError, InvalidHeader
-
+from . import format as fmt
+from .errors import ConfigError, InvalidHeader
 from .kernels.rans_decode import rans_decode_tiled
 from .kernels.rans_encode import rans_encode_tiled, tile_steps_for
 from .kernels.vreg import prep_cum_vreg
 from .models.table import Pow2Table, build_table_pow2
 
-G = rans.GROUP_LANES
+#: default lanes per group; equals the reference's ``rans.GROUP_LANES``
+GROUP_LANES = 2048
+G = GROUP_LANES
 
 #: symbols per device call: bounds the encode's device working set (int32
 #: symbols, the parked emissions and the region capacity: 10 B/symbol)

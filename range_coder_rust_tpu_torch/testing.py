@@ -4,9 +4,12 @@ tests and ``chip_smoke.py``.
 :data:`KERNEL_CASES` names the small geometries every CUDA kernel is held
 against its plain PyTorch version on: a 2048-lane group, an odd tile
 length across two 128-lane groups, non-pow2 and wide alphabets, leading
-zero-frequency symbols, a symbol with c > 2^15, two tiles per group and
-two lanes per decode thread.  All outputs are integers, so every
-comparison is exact.
+zero-frequency symbols, a symbol with c > 2^15, two tiles per group,
+several lanes per decode thread, and the decode kernel's edges: u16
+symbols staged with a ragged last stage (L = 25), its direct-store
+variant (a group too wide for the stage), and a stream dense enough
+(8 bits/symbol) to outrun a ring narrower than the worst case.  All
+outputs are integers, so every comparison is exact.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def make_corpus(n_bytes: int, seed: int = 0xC0) -> np.ndarray:
 
 KERNEL_CASES = ["G2048_L64_NG2", "odd_tile_G128_L63", "A129", "A400", "A1023",
                 "leading_zero_freq", "c_over_2^15", "G256_L512_two_tiles",
-                "G4096_L16_two_lanes_per_thread"]
+                "G4096_L16_two_lanes_per_thread", "G2048_L25_NG2_A400",
+                "G8192_L24_direct_stores", "G4096_L32_uniform_ring_fallback"]
 
 
 def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
@@ -66,6 +70,16 @@ def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
     elif name == "G4096_L16_two_lanes_per_thread":
         g, L, ng = 4096, 16, 3
         data = zipf(ng * g * L, a, 6)
+    elif name == "G2048_L25_NG2_A400":
+        g, L, a = 2048, 25, 400
+        data = zipf(ng * g * L, a, 7, alpha=0.9)
+    elif name == "G8192_L24_direct_stores":
+        g, L, ng = 8192, 24, 1
+        data = zipf(ng * g * L, a, 8)
+    elif name == "G4096_L32_uniform_ring_fallback":
+        g, L, ng = 4096, 32, 1
+        data = np.random.default_rng(9).integers(0, a, ng * g * L,
+                                                 dtype=np.int32)
     else:
         raise KeyError(name)
     return data.reshape(-1, L), g, a

