@@ -11,8 +11,10 @@ Phases (any failure ends the run with a non-zero exit):
    tensors, identical output required) over the small geometries of
    ``range_coder_rust_tpu_torch.testing.KERNEL_CASES``: odd tile lengths,
    wide and non-pow2 alphabets, leading zero-frequency symbols, a symbol
-   with c > 2^15, and the decode's staged u16 stores with a ragged last
-   stage, its direct-store variant and its ring read past its window;
+   with c > 2^15, symbols with c = 1, the encode's u8 and u16 rows read
+   by chunks or (L not a multiple of 16 bytes) symbol by symbol, and the
+   decode's staged u16 stores with a ragged last stage, its direct-store
+   variant and its ring read past its window;
 4. the main path at full size: ``api.encode`` / ``api.decode`` of a 256 MB
    Zipf(1.2) byte corpus with ``CodecConfig(profile="rans16",
    block_len=32768)`` (4 groups of 2048 lanes), an exact round trip, and
@@ -22,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit):
    both versions' times there and for the first group alone, beside each
    kernel's bound: the larger of its bytes (each input read once, each
    output written once) over 3.35 TB/s and its 32-bit integer operations
-   over 16.7 TOP/s, from this run's inputs.
+   over 16.7 TOP/s, from this run's inputs; each kernel's plan (block
+   sizes, loads, shared memory) and its time per step of the chain.
 
 It prints one JSON line on the kernels, then, as its last line,
 ``{"ok": true, "device": {...}}``.  It imports neither jax nor the JAX
@@ -255,10 +258,9 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
             states, region, grp_off, dcum, **dec_kw)), dec_plain_ms),
     }
     # the bounds, from the tensors of this run: the encode reads the
-    # symbols at the width the alphabet needs (the int32 rows are a staging
-    # type) and the table, and writes states, sizes and the region's used
-    # part; the decode reads states, region, offsets and table and writes
-    # the symbols
+    # symbols at the width the alphabet needs and the table, and writes
+    # states, sizes and the region's used part; the decode reads states,
+    # region, offsets and table and writes the symbols
     n_sym, n_hw = rows.numel(), region.numel()
     sym_bytes = n_sym * symbol_bytes(dec_kw["a_count"])
     bounds = {
@@ -268,6 +270,16 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
             states, region, grp_off, dcum, dec_k), n_sym, n_hw),
     }
     L = rows.shape[1]
+    eplan = kernels.encode_plan(ng, g, L, rows.dtype)
+    vector = rows.data_ptr() % 16 == 0 and L * rows.element_size() % 16 == 0
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    smoke.say(f"rans_encode plan at NG={ng} G={g} {rows.dtype}: chain blocks "
+              f"of {eplan['chain_threads']} threads "
+              f"({rows.shape[0] // eplan['chain_threads']} blocks on {n_sm} "
+              f"SMs), {eplan['chunk_steps']} steps a 32-byte row read "
+              f"({'16-byte vector' if vector else 'symbol by symbol'} "
+              f"loads), scratch {eplan['scratch_bytes']} B; "
+              f"{times['rans_encode'][0] / L * 1e6:.2f} ns per step")
     plan = kernels.decode_plan(g, dec_kw["a_count"], dec_kw["out_dtype"])
     smoke.say(f"rans_decode plan at G={g}: "
               f"{'staged' if plan['staged'] else 'direct-store'} variant, "

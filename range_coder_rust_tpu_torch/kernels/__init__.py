@@ -7,7 +7,8 @@ tensor; it counts its kernel launches in ``<wrapper>.launches``.
 """
 
 from .rans_decode import decode_plan, rans_decode_plain, rans_decode_tiled
-from .rans_encode import rans_encode_plain, rans_encode_tiled, tile_steps_for
+from .rans_encode import (encode_plan, rans_encode_plain, rans_encode_tiled,
+                          tile_steps_for)
 from .vreg import prep_cum_vreg
 
 #: the kernel wrappers whose launches are counted, by kernel name
@@ -27,6 +28,7 @@ def reset_launch_counts() -> None:
 __all__ = [
     "WRAPPERS",
     "decode_plan",
+    "encode_plan",
     "launch_counts",
     "prep_cum_vreg",
     "rans_decode_plain",

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
+``nvcc`` compiles every ``csrc/*.cu`` of the package, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so the build takes
 seconds), for ``sm_90a`` (Hopper).  The library lands in
 ``build/range_coder_rust_tpu_torch/<source hash>/`` beside the package, so
@@ -39,9 +40,13 @@ _I64 = ctypes.c_longlong
 
 #: C entry points: name -> argument types (all return cudaError_t as int)
 SIGNATURES = {
-    # sym, cum, states, sizes, offs, park, region, n_groups, group_lanes,
-    # block_len, tile, stream
-    "rc_rans_encode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # sym, sym_bytes, cum, states, sizes, offs, scratch, scratch_bytes,
+    # region, n_groups, group_lanes, block_len, tile, stream
+    "rc_rans_encode": [_P, _I, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I,
+                       _P],
+    # n_groups, group_lanes, block_len, sym_bytes -> scratch_bytes
+    # (long long *), chain_threads, chunk_steps (int *)
+    "rc_rans_encode_plan": [_I, _I, _I, _I, _P, _P, _P],
     # states, region, region_len, grp_off, cum, out, n_groups, group_lanes,
     # block_len, a_count, out_bytes, stream
     "rc_rans_decode": [_P, _P, _I64, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
@@ -81,19 +86,33 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: concurrent builders never
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # build under private names, then rename: concurrent builders never
     # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    (out_dir / "ptxas.txt").write_text(proc.stderr)  # registers, spills
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        procs = []
+        for src in sorted(_CSRC.glob("*.cu")):
+            obj = Path(tmp_dir) / f"{src.stem}.o"
+            cmd = [nvcc, *compile_flags, "-Xptxas", "-v", "-c", "-o",
+                   str(obj), str(src)]
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs = [proc.communicate()[1] for _, _, proc in procs]
+        for (cmd, _, proc), err in zip(procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{err}")
+        tmp = Path(tmp_dir) / lib.name
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(obj) for _, obj, _ in procs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        (out_dir / "ptxas.txt").write_text("".join(logs))  # registers, spills
+        os.replace(tmp, lib)
     return lib
 
 

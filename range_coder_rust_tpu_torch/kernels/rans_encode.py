@@ -6,8 +6,9 @@ Replaces the Pallas kernel ``_rans_encode_kernel`` of
 says what bounds it on the H100 and what its design does about that.
 
 Both versions take lane-major symbol rows ``(NG * G, L)`` (lane ``l`` of
-group ``g`` is row ``g * G + l``) and the padded cum table of
-:func:`..kernels.vreg.prep_cum_vreg`, and return
+group ``g`` is row ``g * G + l``) as ``uint8``, ``int16`` (u16 bits) or
+``int32``, and the padded cum table of :func:`..kernels.vreg.prep_cum_vreg`,
+and return
 
 * ``states`` ``(NG * G,)`` int64: each lane's final state, the preamble;
 * ``sizes`` ``(NG, L // tile)`` int32: per-tile region sizes in halfwords,
@@ -26,6 +27,8 @@ summed per tile.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 #: per-tile region capacity in halfwords, as in the reference: it fixes
@@ -39,11 +42,15 @@ def tile_steps_for(group_lanes: int) -> int:
     return max(1, CAP_HW // group_lanes)
 
 
+#: symbol row dtypes the kernel reads, and their bytes
+SYMBOL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+
+
 def _check_inputs(rows: torch.Tensor, cum: torch.Tensor, group_lanes: int,
                   tile: int) -> None:
-    if rows.dim() != 2 or rows.dtype != torch.int32:
-        raise ValueError(f"rows must be 2-D int32, got {rows.dtype} "
-                         f"{tuple(rows.shape)}")
+    if rows.dim() != 2 or rows.dtype not in SYMBOL_BYTES:
+        raise ValueError(f"rows must be 2-D uint8, int16 or int32, got "
+                         f"{rows.dtype} {tuple(rows.shape)}")
     if cum.shape != (1024,) or cum.dtype != torch.int32:
         raise ValueError("cum must be the (1024,) int32 padded table")
     if cum.device != rows.device:
@@ -64,6 +71,8 @@ def rans_encode_plain(rows: torch.Tensor, cum: torch.Tensor, *,
     ng = B // group_lanes
     cum64 = cum.to(torch.int64)
     sym = rows.to(torch.int64)
+    if rows.dtype == torch.int16:
+        sym &= 0xFFFF  # u16 bits
     cs_all = cum64[sym]
     c_all = cum64[sym + 1] - cs_all
     x = torch.full((B,), 1 << 32, dtype=torch.int64, device=rows.device)
@@ -82,6 +91,24 @@ def rans_encode_plain(rows: torch.Tensor, cum: torch.Tensor, *,
     hw = grouped[flags] & 0xFFFF
     region = torch.where(hw >= 0x8000, hw - 0x10000, hw).to(torch.int16)
     return x, sizes.to(torch.int32), region
+
+
+def encode_plan(n_groups: int, group_lanes: int, block_len: int,
+                dtype: torch.dtype) -> dict:
+    """What the kernel build needs for a shape: ``scratch_bytes`` (the
+    parked halfwords and ballot words), ``chain_threads`` (the chain's
+    block size) and ``chunk_steps`` (steps one 32-byte read of a row
+    covers).  Builds the kernels on first use."""
+    from ._build import check, library
+
+    scratch = ctypes.c_longlong()
+    threads, steps = ctypes.c_int(), ctypes.c_int()
+    check(library().rc_rans_encode_plan(
+        n_groups, group_lanes, block_len, SYMBOL_BYTES[dtype],
+        ctypes.byref(scratch), ctypes.byref(threads), ctypes.byref(steps)),
+        "rans16 encode plan")
+    return {"scratch_bytes": scratch.value, "chain_threads": threads.value,
+            "chunk_steps": steps.value}
 
 
 def rans_encode_tiled(rows: torch.Tensor, cum: torch.Tensor, *,
@@ -104,14 +131,17 @@ def rans_encode_tiled(rows: torch.Tensor, cum: torch.Tensor, *,
     states = torch.empty(B, dtype=torch.int64, device=dev)
     sizes = torch.empty((ng, nt), dtype=torch.int32, device=dev)
     offs = torch.empty(ng * nt + 1, dtype=torch.int64, device=dev)
-    park = torch.empty(B * L, dtype=torch.int32, device=dev)
+    plan = encode_plan(ng, group_lanes, L, rows.dtype)
+    scratch = torch.empty(plan["scratch_bytes"], dtype=torch.uint8,
+                          device=dev)
     region = torch.empty(B * L, dtype=torch.int16, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().rc_rans_encode(
-            rows.data_ptr(), cum.data_ptr(), states.data_ptr(),
-            sizes.data_ptr(), offs.data_ptr(), park.data_ptr(),
-            region.data_ptr(), ng, group_lanes, L, tile, stream)
+            rows.data_ptr(), SYMBOL_BYTES[rows.dtype], cum.data_ptr(),
+            states.data_ptr(), sizes.data_ptr(), offs.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), region.data_ptr(), ng,
+            group_lanes, L, tile, stream)
     check(err, "rans16 encode kernel")
     rans_encode_tiled.launches += 1
     return states, sizes, region

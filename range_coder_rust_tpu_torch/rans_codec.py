@@ -43,8 +43,10 @@ from .models.table import Pow2Table, build_table_pow2
 GROUP_LANES = 2048
 G = GROUP_LANES
 
-#: symbols per device call: bounds the encode's device working set (int32
-#: symbols, the parked emissions and the region capacity: 10 B/symbol)
+#: symbols per device call: bounds the encode's device working set (the
+#: symbols at 1 B (u8) or 2 B (int16), the parked halfword 2 B and its
+#: ballot bit 1/8 B, and the region capacity 2 B: 5.125 B/symbol at u8,
+#: 6.125 B at int16)
 _BATCH_SYMBOLS = 1 << 28
 
 #: payload NT-word flag: sync-point section present
@@ -111,12 +113,12 @@ def _shrink_lane_len(n: int, L: int, group_lanes: int = None) -> int:
 
 
 def _upload_rows(rows: np.ndarray, device) -> torch.Tensor:
-    """Host symbol rows -> int32 rows on ``device``.  Byte rows go up as
-    bytes and widen on the device (a quarter of the transfer)."""
-    if rows.dtype == np.uint8:
-        return torch.from_numpy(np.ascontiguousarray(rows)).to(device).to(
-            torch.int32)
-    return torch.from_numpy(rows.astype(np.int32)).to(device)
+    """Host symbol rows -> rows on ``device`` at the width the encode
+    kernel reads: bytes stay ``uint8``, any other symbols (< 1024) go up
+    as ``int16``."""
+    if rows.dtype != np.uint8:
+        rows = rows.astype(np.int16)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
 
 
 def encode_groups(symbols: np.ndarray, table: Pow2Table, block_len: int,

@@ -7,9 +7,10 @@ length across two 128-lane groups, non-pow2 and wide alphabets, leading
 zero-frequency symbols, a symbol with c > 2^15, two tiles per group,
 several lanes per decode thread, and the decode kernel's edges: u16
 symbols staged with a ragged last stage (L = 25), its direct-store
-variant (a group too wide for the stage), and a stream dense enough
-(8 bits/symbol) to outrun a ring narrower than the worst case.  All
-outputs are integers, so every comparison is exact.
+variant (a group too wide for the stage), a stream dense enough
+(8 bits/symbol) to outrun a ring narrower than the worst case, and
+symbols of frequency 1 (c = 1, where the encode's reciprocal divide
+takes q = x).  All outputs are integers, so every comparison is exact.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ def make_corpus(n_bytes: int, seed: int = 0xC0) -> np.ndarray:
 KERNEL_CASES = ["G2048_L64_NG2", "odd_tile_G128_L63", "A129", "A400", "A1023",
                 "leading_zero_freq", "c_over_2^15", "G256_L512_two_tiles",
                 "G4096_L16_two_lanes_per_thread", "G2048_L25_NG2_A400",
-                "G8192_L24_direct_stores", "G4096_L32_uniform_ring_fallback"]
+                "G8192_L24_direct_stores", "G4096_L32_uniform_ring_fallback",
+                "c_1_rare_symbols"]
 
 
 def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
@@ -80,6 +82,13 @@ def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
         g, L, ng = 4096, 32, 1
         data = np.random.default_rng(9).integers(0, a, ng * g * L,
                                                  dtype=np.int32)
+    elif name == "c_1_rare_symbols":
+        # two symbols seen once in 2^16 get c = 1 (the encode's reciprocal
+        # has no m for them); 250..253 are absent
+        g, L, ng = 2048, 32, 1
+        data = zipf(ng * g * L, 250, 10)
+        data[5] = 255  # lane 0, step 5
+        data[-1] = 254  # the last lane's first step of the backward chain
     else:
         raise KeyError(name)
     return data.reshape(-1, L), g, a
@@ -111,9 +120,10 @@ def decode_err(kernel_out: torch.Tensor, plain_out: torch.Tensor) -> int:
 
 
 def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device):
-    """Encode ``rows`` and decode the result with each CUDA kernel on
-    ``device`` and with its plain version on the CPU, from the same
-    inputs; the decode starts from the plain encode's output.
+    """Encode ``rows`` (at the codec's width: u8 for ``a <= 256``, else
+    int16) and decode the result with each CUDA kernel on ``device`` and
+    with its plain version on the CPU, from the same inputs; the decode
+    starts from the plain encode's output.
 
     Returns ``({kernel name: max_abs_err}, plain (states, sizes, region),
     plain symbols)``.  Raises ``AssertionError`` unless the plain decode
@@ -123,7 +133,10 @@ def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device):
     tile, _ = rans_codec._tile_geometry(L, g)
     cum_c = rans_codec.cum_table(table.cum, "cpu")
     cum_d = cum_c.to(device)
-    rows_c = torch.from_numpy(rows)
+    # the rows at the codec's width (u8 or int16), as the main path
+    # uploads them
+    rows_c = rans_codec._upload_rows(
+        rows.astype(np.uint8) if a <= 256 else rows, "cpu")
     enc_k = kernels.rans_encode_tiled(rows_c.to(device), cum_d,
                                       group_lanes=g, tile=tile)
     enc_p = kernels.rans_encode_tiled(rows_c, cum_c, group_lanes=g, tile=tile)

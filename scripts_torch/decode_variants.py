@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Where the rans16 decode kernel's time goes, on one CUDA card.
+"""Where a rans16 kernel's time goes, on one CUDA card.
 
-    python3 scripts_torch/decode_variants.py [--corpus-mb 256]
-        [--variants as_is,direct_stores,...] [--baseline DIR]
+    python3 scripts_torch/decode_variants.py [--kernel decode|encode]
+        [--corpus-mb 256] [--variants as_is,...] [--baseline DIR]
 
-Builds ``range_coder_rust_tpu_torch/csrc/rans_decode.cu`` once per variant,
-each with one of the kernel's ``RC_VARIANT_*`` macros defined (the normal
-build defines none), into ``build/decode_variants/<name>/``, one ``nvcc``
-per variant, all started together.  It then encodes chip_smoke's main
-path (Zipf(1.2) bytes, seed 0xC0, 2048-lane groups, L = 32768) with the
-package's own encode kernel, and times each variant's decode of it with
-CUDA events (mean of 3 after a warm-up), in the order given, then the
-first variant again.  Every variant must give the package kernel's
-symbols exactly; the run fails otherwise.
+Builds the kernel's source (``range_coder_rust_tpu_torch/csrc/
+rans_decode.cu`` or ``rans_encode.cu``) once per variant, each with one of
+the kernel's ``RC_VARIANT_*`` macros defined (the normal build defines
+none), into ``build/<kernel>_variants/<name>/``, one ``nvcc`` per variant,
+all started together.  It then encodes chip_smoke's main path (Zipf(1.2)
+bytes, seed 0xC0, 2048-lane groups, L = 32768) with the package's own
+kernels and times each variant on that path's inputs with CUDA events
+(mean of 3 after a warm-up), at the main path's shape and for its first
+group alone, in the order given, then the first variant again.  Every
+variant must give the package kernel's output exactly (the decode's
+symbols; the encode's states, sizes and region); the run fails otherwise.
 
-``--baseline DIR`` adds the decode kernel of another checkout (its
+``--baseline DIR`` adds the kernel of another checkout (its
 ``range_coder_rust_tpu_torch/csrc``), for instance the parent commit
-unpacked with ``git archive``, timed the same way.
+unpacked with ``git archive``, timed the same way.  An encode kernel
+without ``rc_rans_encode_plan`` is called with the parent's interface
+(int32 rows and a u32 park), the widening of the rows timed with it.
 
 Every line carries the card's name and power limit.  It imports no jax.
 """
@@ -35,42 +39,61 @@ sys.path.insert(0, str(ROOT))
 from chip_smoke import card_line  # noqa: E402
 
 CSRC = ROOT / "range_coder_rust_tpu_torch" / "csrc"
-OUT = ROOT / "build" / "decode_variants"
 
-#: name -> (what it measures, nvcc defines).  The four reverts undo one
-#: design point each of the kernel's header.
+#: kernel -> name -> (what it measures, nvcc defines).  The reverts undo
+#: one design point each of the kernel's header.
 VARIANTS = {
-    "as_is": ("the kernel as committed", []),
-    "direct_stores": ("design point 1 reverted: one store per lane per step",
-                      ["RC_VARIANT_DIRECT_STORES"]),
-    "binary_search": (
-        "design point 2 reverted: binary search on cum for each symbol",
-        ["RC_VARIANT_BINARY_SEARCH"]),
-    "device_refill": (
-        "design point 3 reverted: every refill read from device memory",
-        ["RC_VARIANT_DEVICE_REFILL"]),
-    "two_barriers": ("design point 4 reverted: a second barrier on every step",
-                     ["RC_VARIANT_TWO_BARRIERS"]),
-    "lanes_2": ("2048-lane groups as 1024 threads of 2 lanes",
-                ["RC_VARIANT_WIDE_LANES=2"]),
-    "lanes_8": ("2048-lane groups as 256 threads of 8 lanes",
-                ["RC_VARIANT_WIDE_LANES=8"]),
+    "decode": {
+        "as_is": ("the kernel as committed", []),
+        "direct_stores": (
+            "design point 1 reverted: one store per lane per step",
+            ["RC_VARIANT_DIRECT_STORES"]),
+        "binary_search": (
+            "design point 2 reverted: binary search on cum for each symbol",
+            ["RC_VARIANT_BINARY_SEARCH"]),
+        "device_refill": (
+            "design point 3 reverted: every refill read from device memory",
+            ["RC_VARIANT_DEVICE_REFILL"]),
+        "two_barriers": (
+            "design point 4 reverted: a second barrier on every step",
+            ["RC_VARIANT_TWO_BARRIERS"]),
+        "lanes_2": ("2048-lane groups as 1024 threads of 2 lanes",
+                    ["RC_VARIANT_WIDE_LANES=2"]),
+        "lanes_8": ("2048-lane groups as 256 threads of 8 lanes",
+                    ["RC_VARIANT_WIDE_LANES=8"]),
+    },
+    "encode": {
+        "as_is": ("the kernel as committed", []),
+        "int32_symbols": (
+            "design point 1 reverted: int32 rows (their widening timed "
+            "with the kernel), one scalar load per step",
+            ["RC_VARIANT_INT32_SYMBOLS"]),
+        "div64": ("design point 2 reverted: a 64-bit division per step",
+                  ["RC_VARIANT_DIV64"]),
+        "u32_park": (
+            "design point 3 reverted: u32 park, flags ranked by block scans",
+            ["RC_VARIANT_U32_PARK"]),
+        "threads_32": ("chain blocks of 32 threads",
+                       ["RC_VARIANT_CHAIN_THREADS=32"]),
+        "threads_128": ("chain blocks of 128 threads",
+                        ["RC_VARIANT_CHAIN_THREADS=128"]),
+    },
 }
 
 
-def build_all(dirs: dict) -> dict:
-    """Start one nvcc per variant, wait for all; name -> loaded entry point.
+def build_all(kernel: str, dirs: dict) -> dict:
+    """Start one nvcc per variant, wait for all; name -> loaded library.
     ``dirs`` maps a name to (source directory, defines)."""
     from range_coder_rust_tpu_torch.kernels import _build
 
     procs = {}
     for name, (src, defines) in dirs.items():
-        out = OUT / name
+        out = ROOT / "build" / f"{kernel}_variants" / name
         out.mkdir(parents=True, exist_ok=True)
-        lib = out / "librc_decode.so"
+        lib = out / f"librc_{kernel}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
                *[f"-D{d}" for d in defines], "-o", str(lib),
-               str(src / "rans_decode.cu")]
+               str(src / f"rans_{kernel}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        lib)
@@ -78,22 +101,144 @@ def build_all(dirs: dict) -> dict:
     failed = [n for n, (proc, _) in procs.items() if proc.returncode]
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{errs[failed[0]]}")
-    libs = {}
-    for name, (_, lib) in procs.items():
-        fn = ctypes.CDLL(str(lib)).rc_rans_decode
-        fn.argtypes = _build.SIGNATURES["rc_rans_decode"]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
+    return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in procs.items()}
+
+
+def _entry(lib, name: str, argtypes):
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(err: int) -> None:
+    if err:
+        raise RuntimeError(f"launch failed: CUDA error {err}")
+
+
+def main_path_inputs(corpus_mb: int):
+    """chip_smoke's main path encoded by the package's kernels: (u8 rows,
+    cum, tile, encode output, decode output)."""
+    import torch
+
+    from range_coder_rust_tpu_torch import kernels, rans_codec
+    from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
+    from range_coder_rust_tpu_torch.testing import make_corpus
+
+    g, L = rans_codec.GROUP_LANES, 32768
+    rows_np = make_corpus(corpus_mb << 20).reshape(-1, L)
+    table = table_from_data_pow2(rows_np, 256, 16)
+    cum = rans_codec.cum_table(table.cum, "cuda")
+    rows = rans_codec._upload_rows(rows_np, "cuda")
+    tile, _ = rans_codec._tile_geometry(L, g)
+    enc = kernels.rans_encode_tiled(rows, cum, group_lanes=g, tile=tile)
+    states, sizes, region = enc
+    n_hw = int(sizes.sum())
+    grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
+                         sizes.sum(1).cumsum(0)])
+    dec = kernels.rans_decode_tiled(
+        states, region[:n_hw].clone(), grp_off, cum, group_lanes=g,
+        block_len=L, a_count=256, out_dtype=torch.uint8)
+    return rows, cum, tile, enc, dec
+
+
+def decode_runners(libs: dict, rows, cum, tile, enc, want):
+    """name -> (run(n_groups), exact()) for the decode variants."""
+    import torch
+
+    from range_coder_rust_tpu_torch.kernels import _build
+
+    g, L = 2048, rows.shape[1]
+    states, sizes, region = enc
+    n_hw = int(sizes.sum())
+    region = region[:n_hw].clone()
+    grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
+                         sizes.sum(1).cumsum(0)])
+    out = torch.empty_like(want)
+    runners = {}
+    for name, lib in libs.items():
+        fn = _entry(lib, "rc_rans_decode", _build.SIGNATURES["rc_rans_decode"])
+
+        def run(n_groups, fn=fn):
+            _launch(fn(states.data_ptr(), region.data_ptr(), n_hw,
+                       grp_off.data_ptr(), cum.data_ptr(), out.data_ptr(),
+                       n_groups, g, L, 256, 1,
+                       torch.cuda.current_stream().cuda_stream))
+
+        def exact(run=run):
+            out.zero_()
+            run(rows.shape[0] // g)
+            torch.cuda.synchronize()
+            return bool(torch.equal(out, want))
+
+        runners[name] = (run, exact)
+    return runners
+
+
+def encode_runners(libs: dict, rows, cum, tile, want):
+    """name -> (run(n_groups), exact()) for the encode variants."""
+    import torch
+
+    from range_coder_rust_tpu_torch.kernels import _build
+
+    g, L = 2048, rows.shape[1]
+    ng, nt = rows.shape[0] // g, L // tile
+    dev = rows.device
+    states = torch.empty(rows.shape[0], dtype=torch.int64, device=dev)
+    sizes = torch.empty((ng, nt), dtype=torch.int32, device=dev)
+    offs = torch.empty(ng * nt + 1, dtype=torch.int64, device=dev)
+    region = torch.empty(rows.numel(), dtype=torch.int16, device=dev)
+    scratch = torch.empty(4 * rows.numel(), dtype=torch.uint8, device=dev)
+    n_want = int(want[1].sum())
+    runners = {}
+    for name, lib in libs.items():
+        current = hasattr(lib, "rc_rans_encode_plan")
+        int32_rows = name == "int32_symbols" or not current
+        if current:
+            fn = _entry(lib, "rc_rans_encode",
+                        _build.SIGNATURES["rc_rans_encode"])
+
+            def call(r, n_groups, fn=fn):
+                return fn(r.data_ptr(), r.element_size(), cum.data_ptr(),
+                          states.data_ptr(), sizes.data_ptr(),
+                          offs.data_ptr(), scratch.data_ptr(),
+                          scratch.numel(), region.data_ptr(), n_groups, g, L,
+                          tile, torch.cuda.current_stream().cuda_stream)
+        else:  # the parent's interface: int32 rows, a u32 park
+            fn = _entry(lib, "rc_rans_encode", [ctypes.c_void_p] * 7 +
+                        [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+            def call(r, n_groups, fn=fn):
+                return fn(r.data_ptr(), cum.data_ptr(), states.data_ptr(),
+                          sizes.data_ptr(), offs.data_ptr(),
+                          scratch.data_ptr(), region.data_ptr(), n_groups,
+                          g, L, tile, torch.cuda.current_stream().cuda_stream)
+
+        def run(n_groups, call=call, int32_rows=int32_rows):
+            r = rows[:n_groups * g]
+            _launch(call(r.to(torch.int32) if int32_rows else r, n_groups))
+
+        def exact(run=run):
+            region.zero_()
+            run(ng)
+            torch.cuda.synchronize()
+            return bool(torch.equal(states, want[0])
+                        and torch.equal(sizes, want[1])
+                        and torch.equal(region[:n_want], want[2][:n_want]))
+
+        runners[name] = (run, exact)
+    return runners
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(VARIANTS), default="decode")
     ap.add_argument("--corpus-mb", type=int, default=256)
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names, timed in this order")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names, timed in this order "
+                         "(default: all of the kernel's)")
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="another checkout whose decode kernel to time too")
+                    help="another checkout whose kernel to time too")
     args = ap.parse_args()
     import torch
 
@@ -101,71 +246,48 @@ def main() -> int:
         print("decode_variants.py: no CUDA device", file=sys.stderr)
         return 1
     from chip_smoke import cuda_ms
-    from range_coder_rust_tpu_torch import kernels, rans_codec
-    from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
-    from range_coder_rust_tpu_torch.testing import make_corpus
 
     card = card_line()
 
     def say(msg):
         print(f"[{card}] {msg}", flush=True)
 
-    dirs = {n: (CSRC, VARIANTS[n][1]) for n in args.variants.split(",") if n}
+    variants = VARIANTS[args.kernel]
+    names = (args.variants.split(",") if args.variants else list(variants))
+    dirs = {n: (CSRC, variants[n][1]) for n in names if n}
     if args.baseline is not None:
         dirs["baseline"] = (
             args.baseline / "range_coder_rust_tpu_torch" / "csrc", [])
-    libs = build_all(dirs)
+    libs = build_all(args.kernel, dirs)
 
-    g, L = rans_codec.GROUP_LANES, 32768
-    data = make_corpus(args.corpus_mb << 20)
-    rows_np = data.reshape(-1, L)
-    table = table_from_data_pow2(rows_np, 256, 16)
-    cum = rans_codec.cum_table(table.cum, "cuda")
-    rows = torch.from_numpy(rows_np).cuda().to(torch.int32)
-    tile, _ = rans_codec._tile_geometry(L, g)
-    states, sizes, region = kernels.rans_encode_tiled(rows, cum, group_lanes=g,
-                                                      tile=tile)
-    del rows
-    n_hw = int(sizes.sum())
-    region = region[:n_hw].clone()
-    grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
-                         sizes.sum(1).cumsum(0)])
-    ng = states.numel() // g
-    want = kernels.rans_decode_tiled(
-        states, region, grp_off, cum, group_lanes=g, block_len=L,
-        a_count=256, out_dtype=torch.uint8)
-    say(f"main path shape: NG={ng} G={g} L={L} region {n_hw} halfwords")
-    out = torch.empty_like(want)
-
-    def run(fn, n_groups=ng):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(states.data_ptr(), region.data_ptr(), n_hw,
-                 grp_off.data_ptr(), cum.data_ptr(), out.data_ptr(), n_groups,
-                 g, L, 256, 1, stream)
-        if err:
-            raise RuntimeError(f"launch failed: CUDA error {err}")
+    rows, cum, tile, enc, dec = main_path_inputs(args.corpus_mb)
+    g, L = 2048, rows.shape[1]
+    ng = rows.shape[0] // g
+    say(f"{args.kernel} main path shape: NG={ng} G={g} L={L} tile={tile} "
+        f"region {int(enc[1].sum())} halfwords")
+    runners = (decode_runners(libs, rows, cum, tile, enc, dec)
+               if args.kernel == "decode"
+               else encode_runners(libs, rows, cum, tile, enc))
 
     results, wrong = {}, []
     order = [*dirs, next(iter(dirs))]
     for i, name in enumerate(order):
-        fn = libs[name]
-        out.zero_()
-        run(fn)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(out, want))
-        if not exact:
+        run, exact = runners[name]
+        ok = exact()
+        if not ok:
             wrong.append(name)
-        ms = cuda_ms(lambda: run(fn))
-        ms1 = cuda_ms(lambda: run(fn, 1))
+        ms = cuda_ms(lambda: run(ng))
+        ms1 = cuda_ms(lambda: run(1))
         key = name if i < len(dirs) else f"{name} (again)"
         results[key] = {"ms": ms, "first_group_ms": ms1,
-                        "ns_per_step": ms / L * 1e6, "exact": exact}
-        what = VARIANTS.get(name, ("the --baseline checkout's kernel",))[0]
-        say(f"{key}: {ms:.4f} ms at NG={ng}, {ms1:.4f} ms first group, "
-            f"{ms / L * 1e6:.2f} ns/step, exact {exact} -- {what}")
-    print(json.dumps({"card": card, "variants": results}), flush=True)
+                        "ns_per_step": ms / L * 1e6, "exact": ok}
+        what = variants.get(name, ("the --baseline checkout's kernel",))[0]
+        say(f"{args.kernel} {key}: {ms:.4f} ms at NG={ng}, {ms1:.4f} ms "
+            f"first group, {ms / L * 1e6:.2f} ns/step, exact {ok} -- {what}")
+    print(json.dumps({"card": card, "kernel": args.kernel,
+                      "variants": results}), flush=True)
     if wrong:
-        raise AssertionError(f"variants that changed the symbols: {wrong}")
+        raise AssertionError(f"variants whose output differs: {wrong}")
     return 0
 
 

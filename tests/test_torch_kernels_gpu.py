@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from range_coder_rust_tpu import rans
-from range_coder_rust_tpu_torch import kernels
+from range_coder_rust_tpu_torch import kernels, testing
 from range_coder_rust_tpu_torch import rans_codec as t_codec
 from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch.testing import (
@@ -126,6 +126,51 @@ def test_cuda_decode_plan_variant(name, staged, cuda_device):
 def test_cuda_encode_symbols_outside_table_do_not_fault(cuda_device):
     rows = torch.full((128, 8), 5000, dtype=torch.int32, device=cuda_device)
     rows[:, ::2] = -3
+    cum = t_codec.cum_table(np.array([0, 1 << 15, 1 << 16]), cuda_device)
+    kernels.rans_encode_tiled(rows, cum, group_lanes=128, tile=8)
+    torch.cuda.synchronize()  # raises if the kernel faulted
+
+
+@pytest.mark.parametrize("name", ["G2048_L64_NG2", "odd_tile_G128_L63",
+                                  "G2048_L25_NG2_A400", "c_1_rare_symbols"])
+def test_cuda_encode_row_widths_and_alignment_match_plain(name, cuda_device):
+    """u8 (for A <= 256), int16 and int32 rows, each as an aligned tensor
+    and as a view whose base is off the 16-byte grid (the symbol-by-symbol
+    loads), give the plain version's output exactly."""
+    rows, g, a = kernel_case(name)
+    L = rows.shape[1]
+    table = table_from_data_pow2(rows, a, 16)
+    tile, _ = t_codec._tile_geometry(L, g)
+    cum_c = t_codec.cum_table(table.cum, "cpu")
+    want = kernels.rans_encode_plain(torch.from_numpy(rows), cum_c,
+                                     group_lanes=g, tile=tile)
+    for w in ([np.uint8] if a <= 256 else []) + [np.int16, np.int32]:
+        host = torch.from_numpy(rows.astype(w))
+        size = host.element_size()
+        buf = torch.empty(host.numel() + 16 // size, dtype=host.dtype,
+                          device=cuda_device)
+        shifted = buf[1:1 + host.numel()].view(host.shape)
+        shifted.copy_(host.to(cuda_device))
+        assert shifted.data_ptr() % 16
+        for dev_rows in (host.to(cuda_device), shifted):
+            got = kernels.rans_encode_tiled(dev_rows, cum_c.to(cuda_device),
+                                            group_lanes=g, tile=tile)
+            torch.cuda.synchronize()
+            assert testing.encode_err(got, want) == 0, (w, dev_rows.data_ptr())
+
+
+@pytest.mark.parametrize("dtype,steps", [(torch.uint8, 32), (torch.int16, 16),
+                                         (torch.int32, 8)])
+def test_cuda_encode_plan(dtype, steps, cuda_device):
+    plan = kernels.encode_plan(4, 2048, 32768, dtype)
+    n = 4 * 2048 * 32768
+    assert plan == {"scratch_bytes": 2 * n + n // 8, "chain_threads": 64,
+                    "chunk_steps": steps}
+
+
+def test_cuda_encode_int16_symbols_outside_table_do_not_fault(cuda_device):
+    rows = torch.full((128, 24), 5000, dtype=torch.int16, device=cuda_device)
+    rows[:, ::2] = -3  # u16 bits 65533
     cum = t_codec.cum_table(np.array([0, 1 << 15, 1 << 16]), cuda_device)
     kernels.rans_encode_tiled(rows, cum, group_lanes=128, tile=8)
     torch.cuda.synchronize()  # raises if the kernel faulted
