@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's rans16 main path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's rans16 paths once on one CUDA card.
 
     python3 chip_smoke.py [--corpus-mb 256]
 
@@ -25,11 +25,31 @@ Phases (any failure ends the run with a non-zero exit):
    kernel's bound: the larger of its bytes (each input read once, each
    output written once) over 3.35 TB/s and its 32-bit integer operations
    over 16.7 TOP/s, from this run's inputs; each kernel's plan (block
-   sizes, loads, shared memory) and its time per step of the chain.
+   sizes, loads, shared memory) and its time per step of the chain;
+6. the adaptive path: a 256 MB mixed corpus (64 KB segments of Zipf,
+   uniform, skewed and run-length data, seed 5; the JAX package's
+   ``scripts/adaptive_bench.py``) with ``CodecConfig(profile="rans16",
+   per_group_tables=True, block_len=32)``: 4096 groups, one table each;
+   an exact round trip at the reference's 7.2703 bits/sym, both kernels
+   against their plain versions on the inputs it gave them, their times
+   beside their bounds, and their times for one step a lane on the same
+   groups and tables (the per-block table build, the launch and one
+   step);
+7. the random-access path: the main path's corpus with ``sync_tiles=128``
+   (7 sync states a group): the container exactly 4 * (7 * 6 * 2048 + 4)
+   bytes larger, a full decode, ``decode_range`` on slices at the start,
+   just after a sync point, across two lanes, across two groups and at
+   the end (each exact, its wall and decode launches), and the encode
+   kernel's sync states against the plain version's on the first group;
+8. the chunked encode (the path for inputs of 2^31 symbols or more) of
+   the main path's corpus in slabs of 2^27 symbols: byte-equal to the
+   single call's container.
 
-It prints one JSON line on the kernels, then, as its last line,
-``{"ok": true, "device": {...}}``.  It imports neither jax nor the JAX
-package.
+Each path resets the launch counts just before it runs and reads them
+just after.  It prints one JSON line on the kernels (the main path's
+numbers under the contract's keys, the other paths' under added keys),
+then, as its last line, ``{"ok": true, "device": {...}}``.  It imports
+neither jax nor the JAX package.
 """
 
 from __future__ import annotations
@@ -126,7 +146,9 @@ def check_kernels(smoke: Smoke) -> dict:
     err = {"rans_encode": 0, "rans_decode": 0}
     for name in testing.KERNEL_CASES:
         rows, g, a = testing.kernel_case(name)
-        errs, _, _ = testing.kernels_vs_plain(rows, g, a, torch.device("cuda"))
+        errs, _, _ = testing.kernels_vs_plain(
+            rows, g, a, torch.device("cuda"),
+            **testing.CASE_OPTIONS.get(name, {}))
         if any(errs.values()):
             raise AssertionError(f"{name}: kernel != plain version: {errs}")
         for k, e in errs.items():
@@ -171,11 +193,7 @@ def plain_wall(fn):
 
 def main_path(smoke: Smoke, corpus_mb: int) -> dict:
     """Phase 4: the main path at full size, through the public API."""
-    import numpy as np
-    import torch
-
     import range_coder_rust_tpu_torch as rt
-    from range_coder_rust_tpu_torch import rans_codec
     from range_coder_rust_tpu_torch.testing import make_corpus
 
     n = corpus_mb << 20
@@ -184,41 +202,35 @@ def main_path(smoke: Smoke, corpus_mb: int) -> dict:
     smoke.say(f"corpus: {n} bytes Zipf(1.2) seed 0xC0 made in "
               f"{time.perf_counter() - t0:.3f} s")
     cfg = rt.CodecConfig(profile="rans16", block_len=32768)
-
-    with Recorder(rans_codec, "rans_encode_tiled") as enc, \
-            Recorder(rans_codec, "rans_decode_tiled") as dec:
-        rt.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        blob = rt.encode(data, alphabet=256, config=cfg, device="cuda")
-        t_enc = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out = rt.decode(blob, device="cuda")
-        t_dec = time.perf_counter() - t0
-        counts = rt.launch_counts()
-
-    if out.dtype != np.uint8 or out.shape != data.shape:
-        raise AssertionError(f"decoded {out.dtype} {out.shape}")
-    if not np.array_equal(out, data):
-        raise AssertionError(f"{n}-byte round trip is not exact")
-    for name, c in counts.items():
-        if c < 1:
-            raise AssertionError(f"main path never launched {name}")
-    if len(enc.calls) != 1 or len(dec.calls) != 1:
-        raise AssertionError(f"kernel calls: encode {len(enc.calls)}, "
-                             f"decode {len(dec.calls)}")
-    (rows, cum), enc_kw, enc_k = enc.calls[0]
-    dec_args, dec_kw, dec_k = dec.calls[0]
+    rt_out = round_trip(smoke, "main path", data, cfg)
+    if len(rt_out["enc"]) != 1 or len(rt_out["dec"]) != 1:
+        raise AssertionError(f"kernel calls: encode {len(rt_out['enc'])}, "
+                             f"decode {len(rt_out['dec'])}")
+    (rows, cum), enc_kw, enc_k = rt_out["enc"][0]
+    dec_args, dec_kw, dec_k = rt_out["dec"][0]
     g, tile = enc_kw["group_lanes"], enc_kw["tile"]
     ng, L = rows.shape[0] // g, rows.shape[1]
-    smoke.say(f"main path round trip exact: n={n} NG={ng} G={g} L={L} "
-              f"NT={L // tile}")
-    smoke.say(f"encode wall {t_enc:.4f} s = {n / t_enc / 1e9:.4f} GB/s; "
-              f"decode wall {t_dec:.4f} s = {n / t_dec / 1e9:.4f} GB/s; "
-              f"container {len(blob)} B = {8 * len(blob) / n:.5f} bits/sym; "
-              f"launches {counts}")
+    smoke.say(f"main path: n={n} NG={ng} G={g} L={L} NT={L // tile}")
+    counts, blob = rt_out["counts"], rt_out["blob"]
     return {"counts": counts, "enc": (rows, cum, enc_kw, enc_k),
-            "dec": (dec_args, dec_kw, dec_k)}
+            "dec": (dec_args, dec_kw, dec_k), "data": data, "blob": blob}
+
+
+def kernel_bounds(rows, cum, enc_out, dec_call) -> dict:
+    """Each kernel's bound from the tensors of one run: the encode reads
+    the symbols at the width the alphabet needs and the table(s), and
+    writes states, sizes, sync states and the region's used part (the
+    decode's region); the decode reads states, region, offsets and
+    table(s) and writes the symbols."""
+    (states, region, grp_off, dcum), dec_kw, dec_out = dec_call
+    n_sym, n_hw = rows.numel(), region.numel()
+    sym_bytes = n_sym * symbol_bytes(dec_kw["a_count"])
+    return {
+        "rans_encode": bound("rans_encode", sym_bytes + nbytes(
+            cum, enc_out[0], enc_out[1], enc_out[3], region), n_sym, n_hw),
+        "rans_decode": bound("rans_decode", nbytes(
+            states, region, grp_off, dcum, dec_out), n_sym, n_hw),
+    }
 
 
 def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
@@ -257,18 +269,7 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
         "rans_decode": (cuda_ms(lambda: kernels.rans_decode_tiled(
             states, region, grp_off, dcum, **dec_kw)), dec_plain_ms),
     }
-    # the bounds, from the tensors of this run: the encode reads the
-    # symbols at the width the alphabet needs and the table, and writes
-    # states, sizes and the region's used part; the decode reads states,
-    # region, offsets and table and writes the symbols
-    n_sym, n_hw = rows.numel(), region.numel()
-    sym_bytes = n_sym * symbol_bytes(dec_kw["a_count"])
-    bounds = {
-        "rans_encode": bound("rans_encode", sym_bytes + nbytes(
-            cum, enc_k[0], enc_k[1], region), n_sym, n_hw),
-        "rans_decode": bound("rans_decode", nbytes(
-            states, region, grp_off, dcum, dec_k), n_sym, n_hw),
-    }
+    bounds = kernel_bounds(rows, cum, enc_k, main["dec"])
     L = rows.shape[1]
     eplan = kernels.encode_plan(ng, g, L, rows.dtype)
     vector = rows.data_ptr() % 16 == 0 and L * rows.element_size() % 16 == 0
@@ -317,10 +318,205 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
     return {"times": times, "first": first, "bounds": bounds, "err": err}
 
 
+def round_trip(smoke: Smoke, what: str, data, cfg) -> dict:
+    """One api encode and decode on the card, each kernel call recorded:
+    the container, both walls, the launch counts and the calls.  Fails
+    unless the round trip is exact and each kernel ran."""
+    import numpy as np
+    import torch
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import rans_codec
+
+    with Recorder(rans_codec, "rans_encode_tiled") as enc, \
+            Recorder(rans_codec, "rans_decode_tiled") as dec:
+        rt.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = rt.encode(data, alphabet=256, config=cfg, device="cuda")
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = rt.decode(blob, device="cuda")
+        t_dec = time.perf_counter() - t0
+        counts = rt.launch_counts()
+    if out.dtype != data.dtype or not np.array_equal(out, data):
+        raise AssertionError(f"{what}: round trip is not exact "
+                             f"({out.dtype} {out.shape})")
+    if min(counts.values()) < 1:
+        raise AssertionError(f"{what}: a kernel never launched: {counts}")
+    n = data.size
+    smoke.say(f"{what}: round trip exact, encode wall {t_enc:.4f} s = "
+              f"{n / t_enc / 1e9:.4f} GB/s, decode wall {t_dec:.4f} s = "
+              f"{n / t_dec / 1e9:.4f} GB/s, container {len(blob)} B = "
+              f"{8 * len(blob) / n:.5f} bits/sym, launches {counts}")
+    return {"blob": blob, "counts": counts, "enc": enc.calls,
+            "dec": dec.calls}
+
+
+def adaptive_path(smoke: Smoke, corpus_mb: int) -> dict:
+    """Phase 6: the adaptive mode (one table per group) on the mixed
+    corpus of the JAX package's ``scripts/adaptive_bench.py``: its round
+    trip, both kernels against their plain versions on the inputs it gave
+    them, their times beside their bounds, and their times for one step a
+    lane on the same groups and tables (the per-block table build, the
+    launch and one step)."""
+    import numpy as np
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import kernels, testing
+
+    n = corpus_mb << 20
+    t0 = time.perf_counter()
+    data = testing.mixed_corpus(n).astype(np.uint8)
+    smoke.say(f"adaptive corpus: {n} bytes, mixed 64 KB segments, seed 5, "
+              f"made in {time.perf_counter() - t0:.3f} s")
+    cfg = rt.CodecConfig(profile="rans16", per_group_tables=True,
+                         block_len=32)
+    rt_out = round_trip(smoke, "adaptive path", data, cfg)
+    if len(rt_out["enc"]) != 1 or len(rt_out["dec"]) != 1:
+        raise AssertionError("adaptive path: one kernel call each expected")
+    (rows, cum), enc_kw, enc_k = rt_out["enc"][0]
+    dec_args, dec_kw, dec_k = rt_out["dec"][0]
+    g = enc_kw["group_lanes"]
+    ng, L = rows.shape[0] // g, rows.shape[1]
+    if tuple(cum.shape) != (ng, 1024):
+        raise AssertionError(f"adaptive path: tables {tuple(cum.shape)}")
+    bits = 8 * len(rt_out["blob"]) / n
+    smoke.say(f"adaptive path: NG={ng} G={g} L={L}, {bits:.4f} bits/sym")
+    if corpus_mb == 256 and round(bits, 4) != 7.2703:
+        raise AssertionError(
+            f"adaptive path: {bits:.4f} bits/sym, the reference's record "
+            "for this corpus and geometry is 7.2703")
+    enc_p, enc_plain_ms = plain_wall(
+        lambda: kernels.rans_encode_plain(rows, cum, **enc_kw))
+    dec_p, dec_plain_ms = plain_wall(
+        lambda: kernels.rans_decode_plain(*dec_args, **dec_kw))
+    err = {"rans_encode": testing.encode_err(enc_k, enc_p),
+           "rans_decode": testing.decode_err(dec_k, dec_p)}
+    if any(err.values()):
+        raise AssertionError(f"adaptive path kernels != plain: {err}")
+    states, region, grp_off, dcum = dec_args
+    times = {
+        "rans_encode": (cuda_ms(lambda: kernels.rans_encode_tiled(
+            rows, cum, **enc_kw)), enc_plain_ms),
+        "rans_decode": (cuda_ms(lambda: kernels.rans_decode_tiled(
+            *dec_args, **dec_kw)), dec_plain_ms),
+    }
+    rows1 = rows[:, :1].contiguous()
+    one_step = {
+        "rans_encode": cuda_ms(lambda: kernels.rans_encode_tiled(
+            rows1, cum, group_lanes=g, tile=1)),
+        "rans_decode": cuda_ms(lambda: kernels.rans_decode_tiled(
+            *dec_args, **{**dec_kw, "block_len": 1})),
+    }
+    bounds = kernel_bounds(rows, cum, enc_k, rt_out["dec"][0])
+    for name in times:
+        smoke.say(f"{name} adaptive path NG={ng} G={g} L={L}: kernel "
+                  f"{times[name][0]:.4f} ms == plain (max_abs_err 0), plain "
+                  f"PyTorch on the card {times[name][1]:.4f} ms, bound "
+                  f"{bounds[name][0]:.4f} ms ({bounds[name][1]}); one step "
+                  f"a lane on the same groups {one_step[name]:.4f} ms = "
+                  f"{one_step[name] / times[name][0]:.4f} of the kernel")
+    return {"counts": rt_out["counts"], "times": times, "bounds": bounds,
+            "one_step": one_step, "err": err}
+
+
+def random_access_path(smoke: Smoke, main: dict) -> dict:
+    """Phase 7: sync points on the main path's corpus: the container's
+    overhead, a full decode, ``decode_range`` on slices at the edges of
+    sync points, lanes and groups, and the encode kernel's sync states
+    against the plain version's on the first group."""
+    import numpy as np
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import kernels, rans_codec, testing
+
+    data = main["data"]
+    n = data.size
+    sync_tiles = 128
+    cfg = rt.CodecConfig(profile="rans16", block_len=32768,
+                         sync_tiles=sync_tiles)
+    rt_out = round_trip(smoke, "random-access path", data, cfg)
+    blob = rt_out["blob"]
+    (rows, cum), enc_kw, enc_k = rt_out["enc"][0]
+    g, tile = enc_kw["group_lanes"], enc_kw["tile"]
+    ng, L = rows.shape[0] // g, rows.shape[1]
+    n_sync = (L // tile - 1) // sync_tiles
+    extra = len(blob) - len(main["blob"])
+    want = ng * (n_sync * 6 * g + 4) if n_sync else 0
+    if extra != want or enc_k[3].shape[1] != n_sync:
+        raise AssertionError(f"sync overhead {extra} B for {ng} groups of "
+                             f"{n_sync} syncs")
+    smoke.say(f"random-access path: NG={ng} G={g} L={L} NT={L // tile} "
+              f"sync_tiles={sync_tiles}: {n_sync} syncs a group, container "
+              f"{extra} B larger than without")
+    first = (rows[:g], cum)
+    sync_k = kernels.rans_encode_tiled(*first, **enc_kw)
+    sync_p, sync_plain_ms = plain_wall(
+        lambda: kernels.rans_encode_plain(*first, **enc_kw))
+    e = testing.encode_err(sync_k, sync_p)
+    if e or not bool((sync_k[3] == enc_k[3][:1]).all()):
+        raise AssertionError(f"first group's sync states: kernel != plain "
+                             f"({e})")
+    sync_ms = cuda_ms(lambda: kernels.rans_encode_tiled(rows, cum, **enc_kw))
+    smoke.say(f"rans_encode with sync states, first group: kernel == plain "
+              f"(max_abs_err 0, plain {sync_plain_ms:.4f} ms); main path "
+              f"NG={ng} with sync states {sync_ms:.4f} ms")
+    sync_step = sync_tiles * tile
+    ranges = {"first": (0, 4096), "after_sync": (sync_step + 3, 4096),
+              "two_lanes": (L - 2048, 4096),
+              "two_groups": (g * L - 2048, 4096), "last": (n - 4096, 4096)}
+    if ng < 2:  # a corpus cut to one group
+        del ranges["two_groups"]
+    range_ms = {}
+    for name, (start, count) in ranges.items():
+        with Recorder(rans_codec, "rans_decode_tiled") as dec:
+            before = kernels.rans_decode_tiled.launches
+            got, wall = plain_wall(lambda: rt.api.decode_range(
+                blob, start, count, device="cuda"))
+            launched = kernels.rans_decode_tiled.launches - before
+        if got.dtype != np.int32 or not np.array_equal(
+                got, data[start : start + count]):
+            raise AssertionError(f"decode_range {name} [{start}, "
+                                 f"{start + count}) is not exact")
+        if launched < 1 or launched != len(dec.calls):
+            raise AssertionError(f"decode_range {name}: {launched} launches")
+        range_ms[name] = sum(cuda_ms(lambda a=a, kw=kw: kernels.
+                                     rans_decode_tiled(*a, **kw))
+                             for a, kw, _ in dec.calls)
+        steps = [kw["block_len"] for _, kw, _ in dec.calls]
+        smoke.say(f"decode_range {name} [{start}, {start + count}) exact: "
+                  f"wall {wall:.4f} ms, {launched} decode launches of "
+                  f"{steps} steps, kernel {range_ms[name]:.4f} ms")
+    return {"sync_ms": sync_ms, "range_ms": range_ms}
+
+
+def chunked_path(smoke: Smoke, main: dict) -> int:
+    """Phase 8: the chunked encode (the path for inputs of 2^31 symbols or
+    more) of the main path's corpus in slabs of 2^27 symbols; its
+    container must be the single call's.  Returns its encode launches."""
+    from range_coder_rust_tpu_torch import kernels, rans_codec
+
+    data = main["data"]
+    L = main["enc"][0].shape[1]  # the single call's lane length
+    before = kernels.rans_encode_tiled.launches
+    blob, wall = plain_wall(lambda: rans_codec._encode_chunked(
+        data, alphabet=256, table=None, block_len=L, with_checksums=True,
+        per_group_tables=False, sync_tiles=0, g=rans_codec.GROUP_LANES,
+        device="cuda", slab_symbols=1 << 27))
+    launched = kernels.rans_encode_tiled.launches - before
+    if blob != main["blob"]:
+        raise AssertionError("chunked container != the single call's")
+    smoke.say(f"chunked encode in slabs of 2^27 symbols: {launched} encode "
+              f"launches, wall {wall / 1e3:.4f} s, container byte-equal to "
+              f"the single call's ({len(blob)} B)")
+    return launched
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=int, default=256,
-                    help="main-path corpus size in MiB (default 256)")
+                    help="corpus size of every path in MiB (default 256)")
     args = ap.parse_args()
     if not (ROOT / PKG / "csrc").is_dir():
         print(f"chip_smoke.py: {PKG}/ not found beside this script; run it "
@@ -357,8 +553,11 @@ def main() -> int:
     err = check_kernels(smoke)
     main = main_path(smoke, args.corpus_mb)
     vs = main_path_vs_plain(smoke, main)
-    for name, e in vs["err"].items():
-        err[name] = max(err[name], e)
+    adapt = adaptive_path(smoke, args.corpus_mb)
+    ra = random_access_path(smoke, main)
+    chunked_launches = chunked_path(smoke, main)
+    for name in err:
+        err[name] = max(err[name], vs["err"][name], adapt["err"][name])
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "range_coder_rust_tpu"))
@@ -372,7 +571,14 @@ def main() -> int:
          "plain_ms": vs["times"][name][1],
          "bound_ms": vs["bounds"][name][0], "bound_by": vs["bounds"][name][1],
          "library_ms": None, "first_group_ms": vs["first"][name][0],
-         "first_group_plain_ms": vs["first"][name][1]}
+         "first_group_plain_ms": vs["first"][name][1],
+         "adaptive_launches": adapt["counts"][name],
+         "adaptive_ms": adapt["times"][name][0],
+         "adaptive_plain_ms": adapt["times"][name][1],
+         "adaptive_bound_ms": adapt["bounds"][name][0],
+         "adaptive_one_step_ms": adapt["one_step"][name],
+         **({"sync_ms": ra["sync_ms"], "chunked_launches": chunked_launches}
+            if name == "rans_encode" else {"range_ms": ra["range_ms"]})}
         for name in ("rans_encode", "rans_decode")]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ reads the same containers as ``range_coder_rust_tpu``, which stays the
 reference.  It imports nothing of that package: it keeps its own copies of
 what it needs (``format``, ``errors``, the NumPy table builder).
 
-* :mod:`.api` — ``CodecConfig``, ``encode``, ``decode``, ``decode_bytes``;
+* :mod:`.api` — ``CodecConfig``, ``encode``, ``decode``, ``decode_range``,
+  ``decode_bytes``;
 * :mod:`.rans_codec` — host orchestration of the rans16 profile;
 * :mod:`.format`, :mod:`.errors` — the container format and the typed
   errors (same bytes, same class names as the reference);

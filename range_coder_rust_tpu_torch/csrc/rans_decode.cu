@@ -13,7 +13,9 @@
 // group's region at cursor + (the lane's exclusive rank among the
 // refilling lanes, in lane order); the cursor then advances by the number
 // of refills.  A read past the group's region gives 0.  The symbols are
-// written lane-major, (group*G + lane, t), in u8, u16 bits or i32.
+// written lane-major, (group*G + lane, t), in u8, u16 bits or i32.  The
+// cum table is one for all groups, or one per group (the adaptive mode;
+// `cum_stride` 1024): each block builds its tables from its own group's.
 //
 // What bounds it on the H100: the serial chain.  Step t+1 needs every
 // lane's state after step t, and a lane's refill position needs the refill
@@ -188,9 +190,9 @@ __global__ void __launch_bounds__(kMaxThreads)
 rans_decode_kernel(const uint64_t* __restrict__ states,
                    const uint16_t* __restrict__ region,
                    const long long* __restrict__ grp_off,
-                   const int32_t* __restrict__ cum_g, OutT* __restrict__ out,
-                   long long region_len, int G, long long L, int a_count,
-                   int ring_hw, bool staged) {
+                   const int32_t* __restrict__ cum_g, int cum_stride,
+                   OutT* __restrict__ out, long long region_len, int G,
+                   long long L, int a_count, int ring_hw, bool staged) {
   constexpr int kWidth = static_cast<int>(sizeof(OutT));
   constexpr int kSpw = 4 / kWidth;                    // steps per word
   constexpr int kHalfWords = kRowBytes / 4;           // words per half row
@@ -212,8 +214,9 @@ rans_decode_kernel(const uint64_t* __restrict__ states,
   const int warp = tid >> 5;
   const int nwarps = nthreads >> 5;
 
+  const long long g = blockIdx.x;
   // the tables: cum, packed (cum[s] | (c[s] - 1) << 16), slot -> symbol
-  rc::load_cum(cum, cum_g);
+  rc::load_cum(cum, cum_g + g * cum_stride);
   for (int s = tid; s < rc::kCumEntries; s += nthreads) {
     const uint32_t lo = cum[s];
     const uint32_t hi = s + 1 < rc::kCumEntries ? cum[s + 1] : lo;
@@ -228,7 +231,6 @@ rans_decode_kernel(const uint64_t* __restrict__ states,
     slot_sym[i] = static_cast<SlotT>(lo);
   }
 
-  const long long g = blockIdx.x;
   // the group's region, clamped to the buffer whatever the offsets say
   const long long lo_off = min(max(grp_off[g], 0ll), region_len);
   const long long hi_off = min(max(grp_off[g + 1], lo_off), region_len);
@@ -475,8 +477,8 @@ int plan_for(int G, size_t slot_bytes, Plan* plan) {
 
 template <typename OutT, typename SlotT>
 int launch(const uint64_t* states, const uint16_t* region,
-           const long long* grp_off, const int32_t* cum, void* out,
-           long long region_len, int n_groups, int G, long long L,
+           const long long* grp_off, const int32_t* cum, int cum_stride,
+           void* out, long long region_len, int n_groups, int G, long long L,
            int a_count, cudaStream_t stream) {
   const int threads = threads_for(G);
   const int lpt = G / threads;
@@ -492,8 +494,8 @@ int launch(const uint64_t* states, const uint16_t* region,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);      \
     if (err != cudaSuccess) return static_cast<int>(err);                   \
     kern<<<n_groups, threads, plan.smem, stream>>>(                         \
-        states, region, grp_off, cum, o, region_len, G, L, a_count,         \
-        plan.ring_hw, plan.staged != 0);                                    \
+        states, region, grp_off, cum, cum_stride, o, region_len, G, L,      \
+        a_count, plan.ring_hw, plan.staged != 0);                           \
     break;                                                                  \
   }
   switch (lpt) {
@@ -525,33 +527,35 @@ size_t slot_bytes_for(int a_count, int out_bytes) {
 
 // states (n_groups*G,) u64 preamble; region (region_len,) u16: the
 // groups' halfwords concatenated, group g at [grp_off[g], grp_off[g+1]);
-// cum (1024,) int32 padded table; out (n_groups*G, L) of out_bytes (1: u8,
-// 2: u16, 4: i32).
+// cum the int32 padded table(s): (1024,) with cum_stride 0, or
+// (n_groups, 1024) with cum_stride 1024; out (n_groups*G, L) of out_bytes
+// (1: u8, 2: u16, 4: i32).
 extern "C" int rc_rans_decode(const uint64_t* states, const uint16_t* region,
                               long long region_len, const long long* grp_off,
-                              const int32_t* cum, void* out, int n_groups,
-                              int G, long long L, int a_count, int out_bytes,
-                              cudaStream_t stream) {
-  if (n_groups < 1 || !valid_shape(G, L, a_count))
+                              const int32_t* cum, int cum_stride, void* out,
+                              int n_groups, int G, long long L, int a_count,
+                              int out_bytes, cudaStream_t stream) {
+  if (n_groups < 1 || !valid_shape(G, L, a_count) ||
+      (cum_stride != 0 && cum_stride != rc::kCumEntries))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool narrow = slot_bytes_for(a_count, out_bytes) == 1;
   switch (out_bytes) {
     case 1:
       return narrow
-          ? launch<uint8_t, uint8_t>(states, region, grp_off, cum, out,
-                                     region_len, n_groups, G, L, a_count,
-                                     stream)
-          : launch<uint8_t, uint16_t>(states, region, grp_off, cum, out,
-                                      region_len, n_groups, G, L, a_count,
-                                      stream);
+          ? launch<uint8_t, uint8_t>(states, region, grp_off, cum,
+                                     cum_stride, out, region_len, n_groups,
+                                     G, L, a_count, stream)
+          : launch<uint8_t, uint16_t>(states, region, grp_off, cum,
+                                      cum_stride, out, region_len, n_groups,
+                                      G, L, a_count, stream);
     case 2:
-      return launch<uint16_t, uint16_t>(states, region, grp_off, cum, out,
-                                        region_len, n_groups, G, L, a_count,
-                                        stream);
+      return launch<uint16_t, uint16_t>(states, region, grp_off, cum,
+                                        cum_stride, out, region_len,
+                                        n_groups, G, L, a_count, stream);
     case 4:
-      return launch<int32_t, uint16_t>(states, region, grp_off, cum, out,
-                                       region_len, n_groups, G, L, a_count,
-                                       stream);
+      return launch<int32_t, uint16_t>(states, region, grp_off, cum,
+                                       cum_stride, out, region_len,
+                                       n_groups, G, L, a_count, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

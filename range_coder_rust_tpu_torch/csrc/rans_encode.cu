@@ -13,7 +13,14 @@
 //   * the final states (the container preamble), one u64 per lane;
 //   * per-tile region sizes in time order (tile = `tile` steps);
 //   * every group's region, the emitted halfwords in (step ascending,
-//     lane ascending) order, concatenated over groups.
+//     lane ascending) order, concatenated over groups;
+//   * with a sync period T > 0 (tile random access), each lane's state
+//     right after the chain finishes time-tile j*T, j = 1 .. (NT-1)/T:
+//     the state the decoder holds before that tile.
+// The cum table is one for all groups, or one per group (the adaptive
+// mode; `cum_stride` 1024).  Each chain block builds its table from its
+// own group's cum: a block never straddles a group (G is a multiple of
+// the block).
 //
 // What bounds it on the H100: the chain.  Each lane's L steps depend on
 // one another, and the lanes are few (8192 on the 256 MB main path, one
@@ -56,6 +63,12 @@
 //    the build's).  64-thread blocks spread the main path's 8192 lanes
 //    over 128 SMs, 2 warps each; 128-thread blocks (4 warps on each of 64
 //    SMs) made every step about 10 % slower, 32-thread blocks no faster.
+// 5. Sync states in a build of their own (RC_VARIANT_ALWAYS_SYNC reverts:
+//    the sync build runs without sync states too).  The store sits on the
+//    tile-boundary branch, uniform across the warp, found by a count-down
+//    of finished tiles instead of a division; but the branch is inlined
+//    into every step of the unrolled chunk loop, and its code alone made
+//    the main path's step about 6 % slower (a division there, 80 %).
 #include <cstdint>
 #include <type_traits>
 #include <cuda_runtime.h>
@@ -194,19 +207,41 @@ __device__ __forceinline__ bool encode_step(uint32_t& lo, uint32_t& hi,
   return emit;
 }
 
-template <typename T, Load kLoad>
+// Where the chain writes the sync states: syncs[g][j - 1][l] for
+// j = 1 .. n_sync, every `period` time-tiles (period 0: none).
+struct Syncs {
+  uint64_t* states;
+  int period;
+  int n_sync;
+};
+
+// kSync: the chain writes sync states (a build of its own, so that the
+// chain without them carries no sync code on its step).
+template <typename T, Load kLoad, bool kSync>
 __global__ void __launch_bounds__(kChainThreads)
-rans_encode_chain(const T* __restrict__ sym, const int32_t* __restrict__ cum_g,
-                  uint64_t* __restrict__ states, int32_t* __restrict__ sizes,
-                  Park park, int G, int L, int tile) {
+rans_encode_chain(const T* __restrict__ sym, const int32_t* __restrict__ cum,
+                  int cum_stride, uint64_t* __restrict__ states,
+                  int32_t* __restrict__ sizes, Park park, Syncs syncs, int G,
+                  int L, int tile) {
   __shared__ uint4 tab[kTable];
-  build_table(tab, cum_g);
   const long long lane = static_cast<long long>(blockIdx.x) * blockDim.x +
                          threadIdx.x;
-  const long long g = lane / G;
+  const long long g = lane / G;  // the same for the whole block
+  build_table(tab, cum + g * cum_stride);
   const int l = static_cast<int>(lane - g * G);
   const T* row = sym + lane * L;
   int32_t* sz = sizes + g * (L / tile);
+  // the sync states, walking down: the next one is sync n_sync, stored
+  // when a count-down of finished tiles (no division on the step's path)
+  // meets 0
+  uint64_t* sp = nullptr;
+  int sync_left = 0, n_left = 0;
+  if constexpr (kSync) {
+    n_left = syncs.n_sync;
+    sp = syncs.states + (g * syncs.n_sync + n_left - 1) * G + l;
+    // (period 0 only in the RC_VARIANT_ALWAYS_SYNC build: no sync)
+    sync_left = (L / tile - 1) % max(syncs.period, 1);
+  }
   const bool leader = (threadIdx.x & 31) == 0;
   // where step t parks, (g, t) step-major (region order): running
   // pointers one step past, moved down before each store, so that the
@@ -239,6 +274,15 @@ rans_encode_chain(const T* __restrict__ sym, const int32_t* __restrict__ cum_g,
     count += __popc(ballot);
     if (--left == 0) {  // uniform across the warp: same t, same group
       if (leader && count) atomicAdd(&sz[ti], count);
+      if constexpr (kSync) {  // tile ti finished: a sync if ti % period == 0
+        if (sync_left-- == 0) {
+          sync_left = syncs.period - 1;
+          if (n_left-- > 0) {  // ti > 0
+            *sp = static_cast<uint64_t>(hi) << 32 | lo;
+            sp -= G;
+          }
+        }
+      }
       count = 0;
       left = tile;
       --ti;
@@ -407,29 +451,52 @@ long long scratch_bytes(int n_groups, int G, int L) {
 #endif
 }
 
-template <typename T>
-cudaError_t launch_chain(const void* sym, const int32_t* cum,
+template <typename T, bool kSync>
+cudaError_t launch_chain(const T* rows, const int32_t* cum, int cum_stride,
                          uint64_t* states, int32_t* sizes, Park park,
-                         int n_groups, int G, int L, int tile,
+                         Syncs syncs, int n_groups, int G, int L, int tile,
                          cudaStream_t stream) {
-  const T* rows = static_cast<const T*>(sym);
   const unsigned blocks = static_cast<unsigned>(
       static_cast<long long>(n_groups) * G / kChainThreads);
 #ifdef RC_VARIANT_INT32_SYMBOLS
-  rans_encode_chain<T, kLoadStep><<<blocks, kChainThreads, 0, stream>>>(
-      rows, cum, states, sizes, park, G, L, tile);
+  rans_encode_chain<T, kLoadStep, kSync>
+      <<<blocks, kChainThreads, 0, stream>>>(rows, cum, cum_stride, states,
+                                             sizes, park, syncs, G, L, tile);
 #else
   const bool vector =
-      reinterpret_cast<uintptr_t>(sym) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
       static_cast<long long>(L) * static_cast<long long>(sizeof(T)) % 16 == 0;
   if (vector)
-    rans_encode_chain<T, kLoadVector><<<blocks, kChainThreads, 0, stream>>>(
-        rows, cum, states, sizes, park, G, L, tile);
+    rans_encode_chain<T, kLoadVector, kSync>
+        <<<blocks, kChainThreads, 0, stream>>>(rows, cum, cum_stride, states,
+                                               sizes, park, syncs, G, L,
+                                               tile);
   else
-    rans_encode_chain<T, kLoadScalar><<<blocks, kChainThreads, 0, stream>>>(
-        rows, cum, states, sizes, park, G, L, tile);
+    rans_encode_chain<T, kLoadScalar, kSync>
+        <<<blocks, kChainThreads, 0, stream>>>(rows, cum, cum_stride, states,
+                                               sizes, park, syncs, G, L,
+                                               tile);
 #endif
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_chain(const void* sym, const int32_t* cum, int cum_stride,
+                         uint64_t* states, int32_t* sizes, Park park,
+                         Syncs syncs, int n_groups, int G, int L, int tile,
+                         cudaStream_t stream) {
+  const T* rows = static_cast<const T*>(sym);
+#ifdef RC_VARIANT_ALWAYS_SYNC
+  const bool sync = true;
+#else
+  const bool sync = syncs.period != 0;
+#endif
+  return sync ? launch_chain<T, true>(rows, cum, cum_stride, states, sizes,
+                                      park, syncs, n_groups, G, L, tile,
+                                      stream)
+              : launch_chain<T, false>(rows, cum, cum_stride, states, sizes,
+                                       park, syncs, n_groups, G, L, tile,
+                                       stream);
 }
 
 }  // namespace
@@ -456,20 +523,28 @@ extern "C" int rc_rans_encode_plan(int n_groups, int G, int L, int sym_bytes,
 }
 
 // sym (n_groups*G, L) lane-major, sym_bytes 1 (u8), 2 (u16 bits) or 4
-// (i32); cum (1024,) int32 padded table; out: states (n_groups*G,) u64,
+// (i32); cum the int32 padded table(s): (1024,) with cum_stride 0, or
+// (n_groups, 1024) with cum_stride 1024; out: states (n_groups*G,) u64,
 // sizes (n_groups, L/tile) int32 time order, offs (n_groups*L/tile + 1,)
-// int64 region offsets, scratch (at least rc_rans_encode_plan's bytes),
-// region (n_groups*G*L,) u16 capacity.
+// int64 region offsets, syncs (n_groups, (L/tile - 1)/sync_tiles, G) u64
+// when sync_tiles > 0 (else unused), scratch (at least
+// rc_rans_encode_plan's bytes), region (n_groups*G*L,) u16 capacity.
 extern "C" int rc_rans_encode(const void* sym, int sym_bytes,
-                              const int32_t* cum, uint64_t* states,
-                              int32_t* sizes, long long* offs, void* scratch,
+                              const int32_t* cum, int cum_stride,
+                              uint64_t* states, int32_t* sizes,
+                              long long* offs, uint64_t* syncs,
+                              int sync_tiles, void* scratch,
                               long long scratch_len, uint16_t* region,
                               int n_groups, int G, int L, int tile,
                               cudaStream_t stream) {
   if (!valid_shape(n_groups, G, L, tile, sym_bytes) ||
       scratch_len < scratch_bytes(n_groups, G, L) ||
-      reinterpret_cast<uintptr_t>(scratch) % 16)
+      reinterpret_cast<uintptr_t>(scratch) % 16 ||
+      (cum_stride != 0 && cum_stride != rc::kCumEntries) || sync_tiles < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_sync = sync_tiles ? (L / tile - 1) / sync_tiles : 0;
+  if (n_sync && !syncs) return static_cast<int>(cudaErrorInvalidValue);
+  const Syncs sy{syncs, n_sync ? sync_tiles : 0, n_sync};
   const long long n = static_cast<long long>(n_groups) * G * L;
   Park park{static_cast<uint16_t*>(scratch),
             reinterpret_cast<uint32_t*>(static_cast<char*>(scratch) +
@@ -480,14 +555,14 @@ extern "C" int rc_rans_encode(const void* sym, int sym_bytes,
                                     stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sym_bytes == 1)
-    err = launch_chain<uint8_t>(sym, cum, states, sizes, park, n_groups, G,
-                                L, tile, stream);
+    err = launch_chain<uint8_t>(sym, cum, cum_stride, states, sizes, park,
+                                sy, n_groups, G, L, tile, stream);
   else if (sym_bytes == 2)
-    err = launch_chain<uint16_t>(sym, cum, states, sizes, park, n_groups, G,
-                                 L, tile, stream);
+    err = launch_chain<uint16_t>(sym, cum, cum_stride, states, sizes, park,
+                                 sy, n_groups, G, L, tile, stream);
   else
-    err = launch_chain<int32_t>(sym, cum, states, sizes, park, n_groups, G,
-                                L, tile, stream);
+    err = launch_chain<int32_t>(sym, cum, cum_stride, states, sizes, park,
+                                sy, n_groups, G, L, tile, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   rans_encode_offsets<<<1, kBlock, 0, stream>>>(sizes, offs, n_tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

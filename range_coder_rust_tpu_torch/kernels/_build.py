@@ -40,16 +40,18 @@ _I64 = ctypes.c_longlong
 
 #: C entry points: name -> argument types (all return cudaError_t as int)
 SIGNATURES = {
-    # sym, sym_bytes, cum, states, sizes, offs, scratch, scratch_bytes,
-    # region, n_groups, group_lanes, block_len, tile, stream
-    "rc_rans_encode": [_P, _I, _P, _P, _P, _P, _P, _I64, _P, _I, _I, _I, _I,
-                       _P],
+    # sym, sym_bytes, cum, cum_stride, states, sizes, offs, syncs,
+    # sync_tiles, scratch, scratch_bytes, region, n_groups, group_lanes,
+    # block_len, tile, stream
+    "rc_rans_encode": [_P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _I64, _P, _I,
+                       _I, _I, _I, _P],
     # n_groups, group_lanes, block_len, sym_bytes -> scratch_bytes
     # (long long *), chain_threads, chunk_steps (int *)
     "rc_rans_encode_plan": [_I, _I, _I, _I, _P, _P, _P],
-    # states, region, region_len, grp_off, cum, out, n_groups, group_lanes,
-    # block_len, a_count, out_bytes, stream
-    "rc_rans_decode": [_P, _P, _I64, _P, _P, _P, _I, _I, _I64, _I, _I, _P],
+    # states, region, region_len, grp_off, cum, cum_stride, out, n_groups,
+    # group_lanes, block_len, a_count, out_bytes, stream
+    "rc_rans_decode": [_P, _P, _I64, _P, _P, _I, _P, _I, _I, _I64, _I, _I,
+                       _P],
     # group_lanes, a_count, out_bytes -> staged, ring_hw, smem, threads
     # (int *)
     "rc_rans_decode_plan": [_I, _I, _I, _P, _P, _P, _P],

@@ -13,7 +13,8 @@ Both versions take
   ``[grp_off[g], grp_off[g + 1])``;
 * ``grp_off`` ``(NG + 1,)`` int64;
 * ``cum``: the ``(1024,)`` int32 padded table
-  (:func:`..kernels.vreg.prep_cum_vreg`);
+  (:func:`..kernels.vreg.prep_cum_vreg`), or one per group,
+  ``(NG, 1024)`` (the adaptive mode);
 
 and return the symbols, lane-major ``(NG * G, L)``, in ``out_dtype``
 (``torch.uint8``, ``torch.int16`` holding u16 bits, or ``torch.int32``).
@@ -38,11 +39,13 @@ def _check_inputs(states, region, grp_off, cum, group_lanes, out_dtype):
         raise ValueError("states must be 1-D int64")
     if region.dim() != 1 or region.dtype != torch.int16:
         raise ValueError("region must be 1-D int16")
-    if cum.shape != (1024,) or cum.dtype != torch.int32:
-        raise ValueError("cum must be the (1024,) int32 padded table")
     B = states.shape[0]
     if B == 0 or B % group_lanes or group_lanes % 128:
         raise ValueError(f"{B} lanes do not make groups of {group_lanes}")
+    if (cum.shape not in ((1024,), (B // group_lanes, 1024))
+            or cum.dtype != torch.int32):
+        raise ValueError("cum must be the (1024,) or (NG, 1024) int32 "
+                         "padded table")
     if grp_off.shape != (B // group_lanes + 1,) or grp_off.dtype != torch.int64:
         raise ValueError("grp_off must be (NG + 1,) int64")
     if out_dtype not in _OUT_BYTES:
@@ -64,7 +67,7 @@ def rans_decode_plain(states: torch.Tensor, region: torch.Tensor,
     B = states.shape[0]
     ng = B // group_lanes
     dev = states.device
-    cum64 = cum.to(torch.int64)
+    cum64 = cum.to(torch.int64).expand(ng, 1024).contiguous()
     hw = region.to(torch.int64) & 0xFFFF
     if hw.numel() == 0:
         hw = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -78,8 +81,8 @@ def rans_decode_plain(states: torch.Tensor, region: torch.Tensor,
         slot = x & 0xFFFF
         s = torch.searchsorted(cum64, slot, right=True) - 1
         out[:, :, t] = s
-        cs = cum64[s]
-        x = (cum64[s + 1] - cs) * (x >> 16) + slot - cs
+        cs = torch.gather(cum64, 1, s)
+        x = (torch.gather(cum64, 1, s + 1) - cs) * (x >> 16) + slot - cs
         refill = x < (1 << 32)
         rank = torch.cumsum(refill, dim=1) - refill.to(torch.int64)
         pos = cursor[:, None] + rank
@@ -121,8 +124,9 @@ def rans_decode_tiled(states: torch.Tensor, region: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().rc_rans_decode(
             states.data_ptr(), region.data_ptr(), n_hw, grp_off.data_ptr(),
-            cum.data_ptr(), out.data_ptr(), B // group_lanes, group_lanes,
-            block_len, a_count, _OUT_BYTES[out_dtype], stream)
+            cum.data_ptr(), 0 if cum.dim() == 1 else 1024, out.data_ptr(),
+            B // group_lanes, group_lanes, block_len, a_count,
+            _OUT_BYTES[out_dtype], stream)
     check(err, "rans16 decode kernel")
     rans_decode_tiled.launches += 1
     return out

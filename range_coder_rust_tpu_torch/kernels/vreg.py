@@ -1,6 +1,7 @@
 """The cum-table layout both rans16 kernels read.
 
-``prep_cum_vreg`` is copied from ``range_coder_rust_tpu/kernels/vreg.py``.
+``prep_cum_vreg`` and ``prep_cum_vreg_batch`` are copied from
+``range_coder_rust_tpu/kernels/vreg.py``.
 On the TPU the (8, 128) shape is one vector register; here the same 1024
 entries are one flat table that each CUDA block stages in shared memory.
 The padding sentinel is larger than any 16-bit slot, so the decoder's
@@ -25,3 +26,14 @@ def prep_cum_vreg(cum: np.ndarray) -> np.ndarray:
     flat = np.full(CUM_ENTRIES, CUM_PAD, np.uint32)
     flat[: cum.shape[0]] = cum
     return flat.reshape(8, 128)
+
+
+def prep_cum_vreg_batch(cums: np.ndarray) -> np.ndarray:
+    """:func:`prep_cum_vreg` for a (NG, A+1) batch of cum tables (one per
+    group, the adaptive mode) -> (NG, 8, 128) uint32."""
+    ng, a1 = cums.shape
+    if a1 > CUM_ENTRIES:
+        raise ValueError(f"alphabet {a1 - 1} exceeds 1023 symbols")
+    flat = np.full((ng, CUM_ENTRIES), CUM_PAD, np.uint32)
+    flat[:, :a1] = cums
+    return flat.reshape(ng, 8, 128)

@@ -1,9 +1,11 @@
 """Host orchestration for the rans16 profile: array <-> container.
 
-The PyTorch counterpart of ``range_coder_rust_tpu/rans_codec.py`` for the
-main path, one shared order-0 table.  It writes the same container bytes
-(``format.py``, FLAG_RANS16, container version 2) and reads the
-reference's containers.
+The PyTorch counterpart of ``range_coder_rust_tpu/rans_codec.py``: one
+shared order-0 table or one table per group (the adaptive mode), sync
+points with tile random access (:func:`decode_tile_range`), and the
+chunked encode of inputs of 2^31 symbols or more.  It writes the same
+container bytes (``format.py``, FLAG_RANS16, container version 2) and
+reads the reference's containers.
 
 Symbol order contract: lane ``l`` of group ``g`` encodes the flat segment
 ``[(g * G + l) * L, (g * G + l + 1) * L)``, i.e. ``reshape(NG * G, L)``
@@ -14,10 +16,13 @@ Per-group payload layout (container version 2):
     u32 NT | u32 region_hw[NT] (time order) | preamble (6 * G bytes,
     lane l's final state as 48-bit LE at [6l, 6l+6)) | regions 0..NT-1
 
-A payload with sync points (bit 31 of the NT word; the reference's
-``sync_tiles``) carries ``u32 sync_T`` after the NT word and the sync
-states after the preamble.  It decodes here like any other: the decoder
-starts from the preamble and skips the sync states.
+With sync points (bit 31 of the NT word set; ``sync_tiles``):
+
+    u32 NT|1<<31 | u32 sync_T | u32 region_hw[NT] | preamble |
+    sync states ((NT-1)//sync_T x 6*G bytes, the decoder's lane states
+    before time-tiles sync_T, 2*sync_T, ...) | regions 0..NT-1
+
+A full decode starts from the preamble and skips the sync states.
 
 The kernels (``kernels/rans_encode.py``, ``kernels/rans_decode.py``) run
 whole groups; this module batches groups, moves the data to and from the
@@ -35,8 +40,8 @@ import torch
 from . import format as fmt
 from .errors import ConfigError, InvalidHeader
 from .kernels.rans_decode import rans_decode_tiled
-from .kernels.rans_encode import rans_encode_tiled, tile_steps_for
-from .kernels.vreg import prep_cum_vreg
+from .kernels.rans_encode import n_syncs, rans_encode_tiled, tile_steps_for
+from .kernels.vreg import prep_cum_vreg, prep_cum_vreg_batch
 from .models.table import Pow2Table, build_table_pow2
 
 #: default lanes per group; equals the reference's ``rans.GROUP_LANES``
@@ -49,21 +54,19 @@ G = GROUP_LANES
 #: 6.125 B at int16)
 _BATCH_SYMBOLS = 1 << 28
 
+#: symbols per slab of the chunked (>= 2^31 symbols) encode, rounded down
+#: to whole groups; as in the reference
+_SLAB_SYMBOLS = 1 << 30
+
 #: payload NT-word flag: sync-point section present
 _SYNC_FLAG = 1 << 31
 
-#: where each path outside this slice stands in ROADMAP.md
-_ROADMAP = {
-    "per_group_tables": "Queue A item 6 (adaptive rans16, one table per group)",
-    "sync_tiles": "Queue A item 7 (tile random access)",
-    "chunked": "Queue A item 8 (chunked encode of >= 2^31 symbols)",
-    "planar": "Queue A item 10 (planar profile)",
-}
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
+def not_ported(what: str) -> NotImplementedError:
+    """The error for a path of the planar profile, the one part of the
+    reference not ported yet."""
     return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: ROADMAP.md {_ROADMAP[item]}")
+        f"{what} is not ported to PyTorch yet: ROADMAP.md Queue A item 10 "
+        "(planar profile)")
 
 
 def _groups_per_call(L: int, g: int) -> int:
@@ -81,9 +84,19 @@ _TORCH_OUT = {np.dtype(np.uint8): torch.uint8, np.dtype(np.uint16): torch.int16,
 
 
 def cum_table(cum: np.ndarray, device) -> torch.Tensor:
-    """(A+1,) cum -> the kernels' (1024,) int32 padded table on ``device``."""
-    flat = prep_cum_vreg(np.asarray(cum, np.uint32)).reshape(-1)
-    return torch.from_numpy(flat.view(np.int32).copy()).to(device)
+    """(A+1,) cum -> the kernels' (1024,) int32 padded table, or (NG, A+1)
+    cums (one table per group) -> (NG, 1024), on ``device``."""
+    cum = np.asarray(cum, np.uint32)
+    flat = prep_cum_vreg(cum) if cum.ndim == 1 else prep_cum_vreg_batch(cum)
+    return torch.from_numpy(flat.reshape(cum.shape[:-1] + (-1,))
+                            .view(np.int32).copy()).to(device)
+
+
+def _cums_of(tables_c: np.ndarray) -> np.ndarray:
+    """(..., A) counts -> (..., A+1) cums."""
+    c = np.asarray(tables_c, np.uint64)
+    zero = np.zeros(c.shape[:-1] + (1,), np.uint64)
+    return np.concatenate([zero, np.cumsum(c, axis=-1)], axis=-1)
 
 
 def _tile_geometry(block_len: int, group_lanes: int = None
@@ -112,54 +125,119 @@ def _shrink_lane_len(n: int, L: int, group_lanes: int = None) -> int:
     return min(L, -(-need // ts) * ts)
 
 
-def _upload_rows(rows: np.ndarray, device) -> torch.Tensor:
-    """Host symbol rows -> rows on ``device`` at the width the encode
-    kernel reads: bytes stay ``uint8``, any other symbols (< 1024) go up
-    as ``int16``."""
+def _upload_rows(rows, device) -> torch.Tensor:
+    """Symbol rows -> rows on ``device`` at the width the encode kernel
+    reads: bytes stay ``uint8``, any other host symbols (< 1024) go up as
+    ``int16``; rows already in a tensor keep their dtype."""
+    if isinstance(rows, torch.Tensor):
+        return rows.to(device)
     if rows.dtype != np.uint8:
         rows = rows.astype(np.int16)
     return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
 
 
-def encode_groups(symbols: np.ndarray, table: Pow2Table, block_len: int,
-                  group_lanes: int = None, *, device="cuda") -> List[bytes]:
-    """Encode (NG*g, L) padded symbol rows into per-group payload bytes,
-    with one shared table."""
+def _padded_rows(narrow: np.ndarray, pad_symbol: int, n_rows: int,
+                 L: int) -> np.ndarray:
+    """The symbols padded with ``pad_symbol`` to ``(n_rows, L)``."""
+    rows = np.full(n_rows * L, pad_symbol, narrow.dtype)
+    rows[: narrow.size] = narrow
+    return rows.reshape(n_rows, L)
+
+
+def _histogram_groups(rows: torch.Tensor, alphabet: int,
+                      n_groups: int) -> np.ndarray:
+    """Per-group order-0 histograms of padded rows, on their device:
+    ``(n_groups, alphabet)`` uint64 counts.  One ``torch.bincount`` over
+    ``group * alphabet + symbol`` for at most 2^26 symbols at a time (the
+    counterpart of the reference's ``_histogram_groups``; the counts are
+    exact either way)."""
+    per = rows.numel() // n_groups
+    flat = rows.reshape(n_groups, per)
+    counts = torch.empty((n_groups, alphabet), dtype=torch.int64,
+                         device=rows.device)
+    step = max(1, (1 << 26) // per)
+    for g0 in range(0, n_groups, step):
+        part = flat[g0 : g0 + step].to(torch.int64)
+        if rows.dtype == torch.int16:
+            part &= 0xFFFF  # u16 bits
+        nb = part.shape[0]
+        part += torch.arange(nb, device=rows.device)[:, None] * alphabet
+        counts[g0 : g0 + nb] = torch.bincount(
+            part.view(-1), minlength=nb * alphabet).view(nb, alphabet)
+    return counts.cpu().numpy().astype(np.uint64)
+
+
+def _states6(states: torch.Tensor, nb: int) -> np.ndarray:
+    """Lane states (any shape, ``nb`` groups first) -> ``(nb, 6 * lanes)``
+    bytes: each state's low 6 bytes, little-endian (states < 2^48)."""
+    x = states.cpu().numpy().astype("<u8").view(np.uint8)
+    return x.reshape(nb, -1, 8)[:, :, :6].reshape(nb, -1)
+
+
+def _states_tensor(states6: List, g: int, device) -> torch.Tensor:
+    """Groups' 6-byte LE lane states -> (len * g,) int64 on ``device``."""
+    x8 = np.zeros((len(states6), g, 8), np.uint8)
+    for i, s6 in enumerate(states6):
+        x8[i, :, :6] = np.frombuffer(s6, np.uint8).reshape(g, 6)
+    return torch.from_numpy(x8.reshape(-1).view("<i8").copy()).to(device)
+
+
+def encode_groups(symbols, table, block_len: int, group_lanes: int = None,
+                  *, sync_tiles: int = 0, device="cuda") -> List[bytes]:
+    """Encode (NG*g, L) padded symbol rows into per-group payload bytes.
+
+    ``symbols``: host rows, or rows already on ``device`` (``uint8`` or
+    ``int16``).  ``table``: one shared Pow2Table, or a list of NG tables,
+    one per group (the adaptive mode).  ``sync_tiles=T > 0`` records each
+    group's lane states every T tiles (6 B a lane a sync) for
+    :func:`decode_tile_range`."""
     g = group_lanes if group_lanes else G
     n_rows, L = symbols.shape
     if L != block_len or n_rows % g:
         raise ConfigError(f"bad group geometry ({n_rows}, {L})")
     NG = n_rows // g
     tile, NT = _tile_geometry(L, g)
-    cum = cum_table(table.cum, device)
-    hdr_nt = np.uint32(NT).tobytes()
+    if not isinstance(table, list):  # Pow2Table is a NamedTuple
+        cums = cum_table(table.cum, device)
+    else:
+        if len(table) != NG:
+            raise ConfigError(f"{len(table)} tables for {NG} groups")
+        cums = cum_table(np.stack([t.cum for t in table]), device)
+    n_sync = n_syncs(NT, sync_tiles)
+    hdr = np.uint32(NT | (_SYNC_FLAG if n_sync else 0)).tobytes()
+    if n_sync:
+        hdr += np.uint32(sync_tiles).tobytes()
     gpc = _groups_per_call(L, g)
     payloads: List[bytes] = []
     for start in range(0, NG, gpc):
         stop = min(start + gpc, NG)
         nb = stop - start
         rows = _upload_rows(symbols[start * g : stop * g], device)
-        states, sizes, region = rans_encode_tiled(
-            rows, cum, group_lanes=g, tile=tile)
+        states, sizes, region, syncs = rans_encode_tiled(
+            rows, _batch_tables(cums, start, stop), group_lanes=g, tile=tile,
+            sync_tiles=sync_tiles)
         sizes_np = sizes.cpu().numpy()
         group_hw = sizes_np.sum(axis=1, dtype=np.int64)
         region_np = region[: int(group_hw.sum())].cpu().numpy().view("<u2")
-        # 48-bit preamble: the low 6 bytes of each lane's LE u64 state
-        pre6 = (states.cpu().numpy().astype("<u8").view(np.uint8)
-                .reshape(nb, g, 8)[:, :, :6])
+        pre6 = _states6(states, nb)
+        sync6 = _states6(syncs, nb) if n_sync else np.zeros((nb, 0), np.uint8)
         bounds = np.concatenate([[0], np.cumsum(group_hw)])
         for bg in range(nb):
             payloads.append(
-                hdr_nt
+                hdr
                 + sizes_np[bg].astype("<u4").tobytes()
                 + pre6[bg].tobytes()
+                + sync6[bg].tobytes()
                 + region_np[bounds[bg] : bounds[bg + 1]].tobytes()
             )
     return payloads
 
 
-def _parse_payload(p, block_len: int, group_lanes: int = None):
-    """One group payload -> (sizes (NT,) int64, pre6 bytes, region bytes).
+def _parse_payload(p, block_len: int, group_lanes: int = None,
+                   full: bool = False):
+    """One group payload -> (sizes (NT,) int64, pre6 bytes, region bytes);
+    with ``full=True`` also ``(sync_T, sync6 bytes)`` (sync_T = 0 when the
+    payload has no sync section).
 
     The tile size is derived from the payload's own NT (tile = L / NT), so
     containers written with other group widths or tile sizes parse."""
@@ -197,42 +275,47 @@ def _parse_payload(p, block_len: int, group_lanes: int = None):
     if (len(pre6) != 6 * g or len(sync6) != 6 * g * n_sync
             or off2 + 2 * int(sizes.sum()) != len(p)):
         raise InvalidHeader("rans16 payload size mismatch")
+    if full:
+        return sizes, pre6, p[off2:], sync_t, sync6
     return sizes, pre6, p[off2:]
 
 
 def decode_groups(payloads: List[bytes], table_c: np.ndarray, block_len: int,
                   group_lanes: int = None, *, device="cuda") -> np.ndarray:
     """Decode per-group payload bytes back to (NG*g, L) symbol rows, in
-    the narrowest unsigned dtype of the alphabet."""
+    the narrowest unsigned dtype of the alphabet.
+
+    ``table_c``: (A,) shared counts, or (NG, A) per-group counts (the
+    adaptive mode; uploaded as one ``(NG, 1024)`` tensor)."""
     g = group_lanes if group_lanes else G
-    if table_c.ndim != 1:
-        raise not_ported("rans16 with one table per group", "per_group_tables")
     NG = len(payloads)
-    a_count = int(table_c.shape[0])
-    cum = cum_table(np.concatenate([[0], np.cumsum(table_c)]), device)
+    a_count = int(table_c.shape[-1])
+    cums = cum_table(_cums_of(table_c), device)
     out = np.empty((NG * g, block_len), _np_dtype(a_count))
     gpc = _groups_per_call(block_len, g)
     for start in range(0, NG, gpc):
         stop = min(start + gpc, NG)
         out[start * g : stop * g] = _decode_batch(
-            payloads[start:stop], cum, a_count, block_len, g, device)
+            payloads[start:stop], _batch_tables(cums, start, stop), a_count,
+            block_len, g, device)
     return out
+
+
+def _batch_tables(cums: torch.Tensor, start: int, stop: int) -> torch.Tensor:
+    """The tables of groups [start, stop): the shared one, or their rows."""
+    return cums if cums.dim() == 1 else cums[start:stop]
 
 
 def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
                   block_len: int, g: int, device) -> np.ndarray:
     """Parse, upload and decode one batch of group payloads."""
-    nb = len(payloads)
     parsed = [_parse_payload(p, block_len, g) for p in payloads]
     NT = parsed[0][0].shape[0]
     if any(s.shape[0] != NT for s, _, _ in parsed):
         raise InvalidHeader("rans16 payloads disagree on tile count")
     group_hw = np.array([int(s.sum()) for s, _, _ in parsed], np.int64)
     region = np.frombuffer(b"".join(bytes(r) for _, _, r in parsed), "<i2")
-    pre8 = np.zeros((nb, g, 8), np.uint8)
-    for i, (_, p6, _) in enumerate(parsed):
-        pre8[i, :, :6] = np.frombuffer(p6, np.uint8).reshape(g, 6)
-    states = torch.from_numpy(pre8.reshape(-1).view("<i8").copy()).to(device)
+    states = _states_tensor([p6 for _, p6, _ in parsed], g, device)
     grp_off = torch.from_numpy(
         np.concatenate([[0], np.cumsum(group_hw)]).astype(np.int64)).to(device)
     out_np = _np_dtype(a_count)
@@ -241,6 +324,54 @@ def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
         group_lanes=g, block_len=block_len, a_count=a_count,
         out_dtype=_TORCH_OUT[out_np])
     return sym.cpu().numpy().view(out_np)
+
+
+def decode_tile_range(payload, table_c: np.ndarray, block_len: int,
+                      step_lo: int, step_hi: int, group_lanes: int = None,
+                      *, parsed=None, cum: torch.Tensor = None,
+                      device="cuda") -> Tuple[np.ndarray, int]:
+    """Decode a step range of one group payload without decoding the rest.
+
+    Starts at the nearest sync point at or before ``step_lo`` (the
+    preamble when the payload has no sync section) and stops after the
+    tile holding ``step_hi - 1``.  Returns ``(rows (g, steps) int32,
+    step0)`` where ``rows[:, s - step0]`` is every lane's symbol at step
+    ``s``.
+
+    ``table_c`` is this group's (A,) counts.  ``parsed`` (the
+    ``_parse_payload(..., full=True)`` tuple) and ``cum`` (its padded
+    table on ``device``) let a caller that reads many ranges of one
+    group parse and upload them once."""
+    g = group_lanes if group_lanes else G
+    if parsed is None:
+        parsed = _parse_payload(payload, block_len, g, full=True)
+    sizes, pre6, region, sync_t, sync6 = parsed
+    NT = sizes.shape[0]
+    tile = block_len // NT
+    if not 0 <= step_lo < step_hi <= block_len:
+        raise ConfigError(
+            f"step range [{step_lo}, {step_hi}) outside [0, {block_len})")
+    tile_lo = step_lo // tile
+    tile_hi = -(-step_hi // tile)
+    j = min(tile_lo // sync_t, (NT - 1) // sync_t) if sync_t else 0
+    t0 = j * sync_t
+    states6 = pre6 if j == 0 else sync6[(j - 1) * 6 * g : j * 6 * g]
+    nt_sub = tile_hi - t0
+    off_hw = int(sizes[:t0].sum())
+    n_hw = int(sizes[t0:tile_hi].sum())
+    region_hw = np.frombuffer(region, "<i2")[off_hw : off_hw + n_hw]
+    a_count = int(table_c.shape[-1])
+    if cum is None:
+        cum = cum_table(_cums_of(table_c), device)
+    out_np = _np_dtype(a_count)
+    sym = rans_decode_tiled(
+        _states_tensor([states6], g, device),
+        torch.from_numpy(region_hw.copy()).to(device),
+        torch.tensor([0, n_hw], dtype=torch.int64, device=device), cum,
+        group_lanes=g, block_len=nt_sub * tile, a_count=a_count,
+        out_dtype=_TORCH_OUT[out_np])
+    rows = sym.cpu().numpy().view(out_np).astype(np.int32)
+    return rows, t0 * tile
 
 
 def encode(
@@ -260,7 +391,11 @@ def encode(
     ``block_len`` is the requested lane length; it is shrunk (to a
     multiple of the tile size, or less for tiny inputs) when the input is
     too small to fill one group at that length.  ``table=None`` builds the
-    shared order-0 table from a host histogram."""
+    shared order-0 table from a host histogram.  ``per_group_tables=True``
+    is the adaptive mode: one order-0 table per group of ``group_lanes *
+    L`` symbols, from a histogram of the uploaded rows.  Inputs of 2^31
+    symbols or more are encoded in slabs of whole groups
+    (:func:`_encode_chunked`) into one container."""
     if table is not None and table.k != 16:
         raise ConfigError("rans16 profile requires k == 16")
     if per_group_tables and table is not None:
@@ -276,43 +411,115 @@ def encode(
         raise ConfigError(
             f"group_lanes {g} must be a power of two in [128, 65536]")
     _tile_geometry(block_len, g)  # validate requested geometry
-    if per_group_tables:
-        raise not_ported("rans16 per_group_tables", "per_group_tables")
-    if sync_tiles:
-        raise not_ported("rans16 sync_tiles", "sync_tiles")
     if n >= 1 << 31:
-        raise not_ported("rans16 encode of >= 2^31 symbols", "chunked")
+        return _encode_chunked(
+            symbols, alphabet=alphabet, table=table, block_len=block_len,
+            with_checksums=with_checksums,
+            per_group_tables=per_group_tables, sync_tiles=sync_tiles, g=g,
+            device=device)
     L = _shrink_lane_len(n, block_len, g)
     ng = max(1, math.ceil(n / (g * L)))
 
     narrow = (symbols if alphabet > 256
               else symbols.astype(np.uint8, copy=False))
-    if table is None:
+    if per_group_tables:
+        # pad with the last data symbol: it is in the last group's
+        # histogram (a zero-frequency pad would be uncodable)
+        pad_symbol = int(symbols[-1]) if n else 0
+        rows = _upload_rows(_padded_rows(narrow, pad_symbol, ng * g, L),
+                            device)
+        counts = _histogram_groups(rows, alphabet, ng)
         if n == 0:
-            counts = np.ones(max(alphabet, 1), np.uint64)
-        else:
-            hist_src = (narrow if narrow.dtype == np.uint8
-                        else narrow.astype(np.uint16, copy=False))
-            counts = np.zeros(alphabet, np.int64)
-            step = 1 << 28
-            for i in range(0, n, step):
-                counts += np.bincount(
-                    hist_src[i : i + step], minlength=alphabet)[:alphabet]
-            counts = counts.astype(np.uint64)
-        table = build_table_pow2(counts, 16)
-    pad_symbol = int(np.argmax(table.c))
-    rows_host = np.full(ng * g * L, pad_symbol, narrow.dtype)
-    rows_host[:n] = narrow
-    payloads = encode_groups(rows_host.reshape(ng * g, L), table, L, g,
-                             device=device)
+            counts[:] = 1
+        tables = [build_table_pow2(c, 16) for c in counts]
+        payloads = encode_groups(rows, tables, L, g, sync_tiles=sync_tiles,
+                                 device=device)
+        tables_c = np.stack([t.c for t in tables])
+    else:
+        if table is None:
+            table = build_table_pow2(_host_counts(narrow, alphabet), 16)
+        rows = _padded_rows(narrow, int(np.argmax(table.c)), ng * g, L)
+        payloads = encode_groups(rows, table, L, g, sync_tiles=sync_tiles,
+                                 device=device)
+        tables_c = table.c
     return fmt.pack(
         k=16,
         alphabet=alphabet,
         block_len=L,
         n_symbols=n,
         payloads=payloads,
-        tables_c=table.c,
-        per_block_tables=False,
+        tables_c=tables_c,
+        per_block_tables=per_group_tables,
+        with_checksums=with_checksums,
+        profile="rans16",
+        group_lanes=g,
+    )
+
+
+def _host_counts(narrow: np.ndarray, alphabet: int) -> np.ndarray:
+    """The shared table's counts: a host histogram over 2^28-symbol
+    slices (all ones for an empty input)."""
+    n = narrow.size
+    if n == 0:
+        return np.ones(max(alphabet, 1), np.uint64)
+    src = (narrow if narrow.dtype == np.uint8
+           else narrow.astype(np.uint16, copy=False))
+    counts = np.zeros(alphabet, np.int64)
+    step = 1 << 28
+    for i in range(0, n, step):
+        counts += np.bincount(src[i : i + step],
+                              minlength=alphabet)[:alphabet]
+    return counts.astype(np.uint64)
+
+
+def _encode_chunked(
+    symbols: np.ndarray, *, alphabet: int, table, block_len: int,
+    with_checksums: bool, per_group_tables: bool, sync_tiles: int, g: int,
+    device="cuda", slab_symbols: int = None,
+) -> bytes:
+    """Encode in slabs of whole groups (``slab_symbols``, default
+    ``_SLAB_SYMBOLS``, rounded down to whole groups), appending every
+    slab's payloads to one container: the path for inputs of 2^31 symbols
+    or more.  The lane length is not shrunk; the last slab is padded to
+    whole groups.  The container is the single call's: groups are
+    independent."""
+    n = int(symbols.size)
+    L = block_len
+    span = g * L
+    narrow = (symbols if symbols.dtype == np.uint8
+              else symbols.astype(np.uint8) if alphabet <= 256
+              else symbols.astype(np.uint16))
+    slab = max(1, (slab_symbols or _SLAB_SYMBOLS) // span) * span
+    if not per_group_tables and table is None:
+        table = build_table_pow2(_host_counts(narrow, alphabet), 16)
+    pad_symbol = (int(np.argmax(table.c)) if not per_group_tables
+                  else int(narrow[-1]))
+
+    payloads: List[bytes] = []
+    tables_per_group: List[np.ndarray] = []
+    for s0 in range(0, n, slab):
+        part = narrow[s0 : min(s0 + slab, n)]
+        ng = -(-part.size // span)
+        rows = _padded_rows(part, pad_symbol, ng * g, L)
+        if per_group_tables:
+            rows = _upload_rows(rows, device)
+            slab_tables = [build_table_pow2(c, 16)
+                           for c in _histogram_groups(rows, alphabet, ng)]
+            payloads += encode_groups(rows, slab_tables, L, g,
+                                      sync_tiles=sync_tiles, device=device)
+            tables_per_group += [t.c for t in slab_tables]
+        else:
+            payloads += encode_groups(rows, table, L, g,
+                                      sync_tiles=sync_tiles, device=device)
+    return fmt.pack(
+        k=16,
+        alphabet=alphabet,
+        block_len=L,
+        n_symbols=n,
+        payloads=payloads,
+        tables_c=(np.stack(tables_per_group) if per_group_tables
+                  else table.c),
+        per_block_tables=per_group_tables,
         with_checksums=with_checksums,
         profile="rans16",
         group_lanes=g,
@@ -323,8 +530,6 @@ def decode(cont: fmt.Container, *, device="cuda") -> np.ndarray:
     """Decompress a parsed rans16 container back to the symbol array."""
     if cont.profile != "rans16":
         raise ConfigError("not a rans16 container")
-    if cont.per_block_tables:
-        raise not_ported("rans16 with one table per group", "per_group_tables")
     gl = cont.group_lanes
     if gl < 128 or gl % 128:
         raise ConfigError(

@@ -10,7 +10,11 @@ symbols staged with a ragged last stage (L = 25), its direct-store
 variant (a group too wide for the stage), a stream dense enough
 (8 bits/symbol) to outrun a ring narrower than the worst case, and
 symbols of frequency 1 (c = 1, where the encode's reciprocal divide
-takes q = x).  All outputs are integers, so every comparison is exact.
+takes q = x).  The cases of :data:`CASE_OPTIONS` run with one table per
+group (a group of one symbol among them, c = 2^16) and with sync points:
+the encode's sync states are compared too, and the decode also runs from
+a sync state over a sub-range of tiles, as ``decode_tile_range`` drives
+it.  All outputs are integers, so every comparison is exact.
 """
 
 from __future__ import annotations
@@ -40,11 +44,46 @@ def make_corpus(n_bytes: int, seed: int = 0xC0) -> np.ndarray:
     return zipf(n_bytes, 256, seed, dtype=np.uint8)
 
 
+def mixed_corpus(n: int, seed: int = 5) -> np.ndarray:
+    """Segments of very different statistics, shuffled at 64 KB scale: a
+    copy of ``mixed_corpus`` in the JAX package's
+    ``scripts/adaptive_bench.py`` (the adaptive mode's corpus)."""
+    rng = np.random.default_rng(seed)
+    segs = []
+    per = 64 << 10
+    kinds = ["zipf", "uniform", "skew", "runs"]
+    for i in range(n // per):
+        kind = kinds[i % 4]
+        if kind == "zipf":
+            r = np.arange(1, 257)
+            p = 1.0 / r**1.3
+            p /= p.sum()
+            segs.append(rng.choice(256, size=per, p=p))
+        elif kind == "uniform":
+            segs.append(rng.integers(0, 256, per))
+        elif kind == "skew":
+            base = rng.integers(0, 200)
+            segs.append((base + rng.geometric(0.3, per)) % 256)
+        else:
+            vals = rng.integers(0, 256, per // 64)
+            segs.append(np.repeat(vals, 64))
+    return np.concatenate(segs)[:n].astype(np.int32)
+
+
 KERNEL_CASES = ["G2048_L64_NG2", "odd_tile_G128_L63", "A129", "A400", "A1023",
                 "leading_zero_freq", "c_over_2^15", "G256_L512_two_tiles",
                 "G4096_L16_two_lanes_per_thread", "G2048_L25_NG2_A400",
                 "G8192_L24_direct_stores", "G4096_L32_uniform_ring_fallback",
-                "c_1_rare_symbols"]
+                "c_1_rare_symbols", "G1024_L192_per_group_sync1",
+                "G2048_L128_per_group_A400_sync2", "G128_L1536_sync1"]
+
+#: kernels_vs_plain's options for the cases that need them: one table per
+#: group, and a sync period
+CASE_OPTIONS = {
+    "G1024_L192_per_group_sync1": dict(per_group=True, sync_tiles=1),
+    "G2048_L128_per_group_A400_sync2": dict(per_group=True, sync_tiles=2),
+    "G128_L1536_sync1": dict(sync_tiles=1),
+}
 
 
 def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
@@ -89,6 +128,19 @@ def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
         data = zipf(ng * g * L, 250, 10)
         data[5] = 255  # lane 0, step 5
         data[-1] = 254  # the last lane's first step of the backward chain
+    elif name == "G1024_L192_per_group_sync1":
+        # 3 tiles of 64 steps; group 1 is one symbol (its c is 2^16)
+        g, L = 1024, 192
+        data = np.concatenate([zipf(g * L, a, 11),
+                               np.full(g * L, 7, np.int32)])
+    elif name == "G2048_L128_per_group_A400_sync2":
+        # 4 tiles of 32 steps; the groups' statistics differ
+        g, L, a = 2048, 128, 400
+        data = np.concatenate([zipf(g * L, a, 12, alpha=0.9),
+                               399 - zipf(g * L, 300, 13, alpha=1.5)])
+    elif name == "G128_L1536_sync1":
+        g, L, ng = 128, 1536, 1  # 3 tiles of 512 steps
+        data = zipf(ng * g * L, a, 14)
     else:
         raise KeyError(name)
     return data.reshape(-1, L), g, a
@@ -106,12 +158,13 @@ def _max_abs(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def encode_err(kernel_out, plain_out) -> int:
     """Largest absolute difference between the kernel's and the plain
-    version's ``(states, sizes, region)``.  The kernel's region buffer is
-    sized for the worst case; its first ``sizes.sum()`` halfwords count."""
-    (st_k, sz_k, rg_k), (st_p, sz_p, rg_p) = kernel_out, plain_out
+    version's ``(states, sizes, region, syncs)``.  The kernel's region
+    buffer is sized for the worst case; its first ``sizes.sum()``
+    halfwords count."""
+    (st_k, sz_k, rg_k, sy_k), (st_p, sz_p, rg_p, sy_p) = kernel_out, plain_out
     n = int(sz_k.sum())
     return max(_max_abs(st_k, st_p), _max_abs(sz_k, sz_p),
-               _max_abs(rg_k[:n], rg_p))
+               _max_abs(rg_k[:n], rg_p), _max_abs(sy_k, sy_p))
 
 
 def decode_err(kernel_out: torch.Tensor, plain_out: torch.Tensor) -> int:
@@ -119,38 +172,68 @@ def decode_err(kernel_out: torch.Tensor, plain_out: torch.Tensor) -> int:
     return _max_abs(kernel_out, plain_out)
 
 
-def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device):
+def _cums(rows: np.ndarray, g: int, a: int, per_group: bool) -> np.ndarray:
+    """The cum (A+1,) of ``rows``, or one per group of ``g`` rows
+    (NG, A+1)."""
+    if not per_group:
+        return table_from_data_pow2(rows, a, 16).cum
+    return np.stack([table_from_data_pow2(rows[i : i + g], a, 16).cum
+                     for i in range(0, rows.shape[0], g)])
+
+
+def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device, *,
+                     per_group: bool = False, sync_tiles: int = 0):
     """Encode ``rows`` (at the codec's width: u8 for ``a <= 256``, else
     int16) and decode the result with each CUDA kernel on ``device`` and
     with its plain version on the CPU, from the same inputs; the decode
-    starts from the plain encode's output.
+    starts from the plain encode's output.  ``per_group`` gives each group
+    its own table; with ``sync_tiles`` the encode also records sync
+    states, and the decode also runs from group 0's first sync state over
+    the tiles up to the next sync point (or the end).
 
-    Returns ``({kernel name: max_abs_err}, plain (states, sizes, region),
-    plain symbols)``.  Raises ``AssertionError`` unless the plain decode
-    gives ``rows`` back."""
+    Returns ``({kernel name: max_abs_err}, plain (states, sizes, region,
+    syncs), plain symbols)``.  Raises ``AssertionError`` unless the plain
+    decodes give ``rows`` back."""
     L = rows.shape[1]
-    table = table_from_data_pow2(rows, a, 16)
-    tile, _ = rans_codec._tile_geometry(L, g)
-    cum_c = rans_codec.cum_table(table.cum, "cpu")
+    tile, nt = rans_codec._tile_geometry(L, g)
+    cum_c = rans_codec.cum_table(_cums(rows, g, a, per_group), "cpu")
     cum_d = cum_c.to(device)
     # the rows at the codec's width (u8 or int16), as the main path
     # uploads them
     rows_c = rans_codec._upload_rows(
         rows.astype(np.uint8) if a <= 256 else rows, "cpu")
-    enc_k = kernels.rans_encode_tiled(rows_c.to(device), cum_d,
-                                      group_lanes=g, tile=tile)
-    enc_p = kernels.rans_encode_tiled(rows_c, cum_c, group_lanes=g, tile=tile)
-    st_p, sz_p, rg_p = enc_p
+    kw = dict(group_lanes=g, tile=tile, sync_tiles=sync_tiles)
+    enc_k = kernels.rans_encode_tiled(rows_c.to(device), cum_d, **kw)
+    enc_p = kernels.rans_encode_tiled(rows_c, cum_c, **kw)
+    st_p, sz_p, rg_p, sy_p = enc_p
     grp_off = torch.from_numpy(np.concatenate(
         [[0], np.cumsum(sz_p.sum(1).numpy())]).astype(np.int64))
+    out_np = rans_codec._np_dtype(a)
     kw = dict(group_lanes=g, block_len=L, a_count=a,
-              out_dtype=rans_codec._TORCH_OUT[rans_codec._np_dtype(a)])
+              out_dtype=rans_codec._TORCH_OUT[out_np])
     dec_k = kernels.rans_decode_tiled(
         st_p.to(device), rg_p.to(device), grp_off.to(device), cum_d, **kw)
     dec_p = kernels.rans_decode_tiled(st_p, rg_p, grp_off, cum_c, **kw)
-    back = dec_p.numpy().view(rans_codec._np_dtype(a)).astype(np.int32)
+    back = dec_p.numpy().view(out_np).astype(np.int32)
     if not np.array_equal(back, rows):
         raise AssertionError("plain decode does not give the rows back")
     errs = {"rans_encode": encode_err(enc_k, enc_p),
             "rans_decode": decode_err(dec_k, dec_p)}
+    if sy_p.shape[1]:
+        # group 0 from sync 1 (before time-tile T) through the tile before
+        # sync 2, as decode_tile_range hands it to the decode
+        t0, t1 = sync_tiles, min(2 * sync_tiles, nt)
+        sizes0 = sz_p[0].to(torch.int64)
+        lo, hi = int(sizes0[:t0].sum()), int(sizes0[:t1].sum())
+        sub = (sy_p[0, 0], rg_p[lo:hi], torch.tensor([0, hi - lo]),
+               cum_c[:1] if per_group else cum_c)
+        kw["block_len"] = (t1 - t0) * tile
+        sub_k = kernels.rans_decode_tiled(*(t.to(device) for t in sub), **kw)
+        sub_p = kernels.rans_decode_tiled(*sub, **kw)
+        back = sub_p.numpy().view(out_np).astype(np.int32)
+        if not np.array_equal(back, rows[:g, t0 * tile : t1 * tile]):
+            raise AssertionError("plain decode from a sync state does not "
+                                 "give the rows back")
+        errs["rans_decode"] = max(errs["rans_decode"],
+                                  decode_err(sub_k, sub_p))
     return errs, enc_p, dec_p

@@ -18,9 +18,11 @@ symbols; the encode's states, sizes and region); the run fails otherwise.
 
 ``--baseline DIR`` adds the kernel of another checkout (its
 ``range_coder_rust_tpu_torch/csrc``), for instance the parent commit
-unpacked with ``git archive``, timed the same way.  An encode kernel
-without ``rc_rans_encode_plan`` is called with the parent's interface
-(int32 rows and a u32 park), the widening of the rows timed with it.
+unpacked with ``git archive``, timed the same way.  A kernel is called
+with the interface its source declares: without ``cum_stride`` (one
+shared table, no sync states), and an encode kernel without
+``rc_rans_encode_plan`` with the older one of int32 rows (a u32 park, the
+widening of the rows timed with it).
 
 Every line carries the card's name and power limit.  It imports no jax.
 """
@@ -77,13 +79,28 @@ VARIANTS = {
                        ["RC_VARIANT_CHAIN_THREADS=32"]),
         "threads_128": ("chain blocks of 128 threads",
                         ["RC_VARIANT_CHAIN_THREADS=128"]),
+        "always_sync": (
+            "design point 5 reverted: the sync-state build without syncs",
+            ["RC_VARIANT_ALWAYS_SYNC"]),
     },
 }
 
 
+def interface(src: Path, kernel: str) -> str:
+    """Which C interface a kernel source declares: "current",
+    "shared_table" (one shared table, no sync states) or "int32_rows"
+    (encode: int32 rows, a u32 park)."""
+    text = (src / f"rans_{kernel}.cu").read_text()
+    if "cum_stride" in text:
+        return "current"
+    return ("shared_table" if kernel == "decode"
+            or "rc_rans_encode_plan" in text else "int32_rows")
+
+
 def build_all(kernel: str, dirs: dict) -> dict:
-    """Start one nvcc per variant, wait for all; name -> loaded library.
-    ``dirs`` maps a name to (source directory, defines)."""
+    """Start one nvcc per variant, wait for all; name -> (loaded library,
+    its interface).  ``dirs`` maps a name to (source directory,
+    defines)."""
     from range_coder_rust_tpu_torch.kernels import _build
 
     procs = {}
@@ -101,7 +118,8 @@ def build_all(kernel: str, dirs: dict) -> dict:
     failed = [n for n, (proc, _) in procs.items() if proc.returncode]
     if failed:
         raise RuntimeError(f"nvcc failed for {failed}:\n{errs[failed[0]]}")
-    return {name: ctypes.CDLL(str(lib)) for name, (_, lib) in procs.items()}
+    return {name: (ctypes.CDLL(str(lib)), interface(dirs[name][0], kernel))
+            for name, (_, lib) in procs.items()}
 
 
 def _entry(lib, name: str, argtypes):
@@ -132,7 +150,7 @@ def main_path_inputs(corpus_mb: int):
     rows = rans_codec._upload_rows(rows_np, "cuda")
     tile, _ = rans_codec._tile_geometry(L, g)
     enc = kernels.rans_encode_tiled(rows, cum, group_lanes=g, tile=tile)
-    states, sizes, region = enc
+    states, sizes, region, _ = enc
     n_hw = int(sizes.sum())
     grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
                          sizes.sum(1).cumsum(0)])
@@ -149,20 +167,25 @@ def decode_runners(libs: dict, rows, cum, tile, enc, want):
     from range_coder_rust_tpu_torch.kernels import _build
 
     g, L = 2048, rows.shape[1]
-    states, sizes, region = enc
+    states, sizes, region, _ = enc
     n_hw = int(sizes.sum())
     region = region[:n_hw].clone()
     grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
                          sizes.sum(1).cumsum(0)])
     out = torch.empty_like(want)
     runners = {}
-    for name, lib in libs.items():
-        fn = _entry(lib, "rc_rans_decode", _build.SIGNATURES["rc_rans_decode"])
+    for name, (lib, iface) in libs.items():
+        sig = list(_build.SIGNATURES["rc_rans_decode"])
+        # the table's stride (0: one shared table), after cum
+        stride = [] if iface == "shared_table" else [0]
+        if iface == "shared_table":
+            del sig[5]
+        fn = _entry(lib, "rc_rans_decode", sig)
 
-        def run(n_groups, fn=fn):
+        def run(n_groups, fn=fn, stride=stride):
             _launch(fn(states.data_ptr(), region.data_ptr(), n_hw,
-                       grp_off.data_ptr(), cum.data_ptr(), out.data_ptr(),
-                       n_groups, g, L, 256, 1,
+                       grp_off.data_ptr(), cum.data_ptr(), *stride,
+                       out.data_ptr(), n_groups, g, L, 256, 1,
                        torch.cuda.current_stream().cuda_stream))
 
         def exact(run=run):
@@ -191,12 +214,23 @@ def encode_runners(libs: dict, rows, cum, tile, want):
     scratch = torch.empty(4 * rows.numel(), dtype=torch.uint8, device=dev)
     n_want = int(want[1].sum())
     runners = {}
-    for name, lib in libs.items():
-        current = hasattr(lib, "rc_rans_encode_plan")
-        int32_rows = name == "int32_symbols" or not current
-        if current:
+    for name, (lib, iface) in libs.items():
+        int32_rows = name == "int32_symbols" or iface == "int32_rows"
+        if iface == "current":
             fn = _entry(lib, "rc_rans_encode",
                         _build.SIGNATURES["rc_rans_encode"])
+
+            def call(r, n_groups, fn=fn):  # one shared table, no syncs
+                return fn(r.data_ptr(), r.element_size(), cum.data_ptr(), 0,
+                          states.data_ptr(), sizes.data_ptr(),
+                          offs.data_ptr(), None, 0, scratch.data_ptr(),
+                          scratch.numel(), region.data_ptr(), n_groups, g, L,
+                          tile, torch.cuda.current_stream().cuda_stream)
+        elif iface == "shared_table":
+            fn = _entry(lib, "rc_rans_encode", [ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                                   ctypes.c_void_p]
+                        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
             def call(r, n_groups, fn=fn):
                 return fn(r.data_ptr(), r.element_size(), cum.data_ptr(),
@@ -204,7 +238,7 @@ def encode_runners(libs: dict, rows, cum, tile, want):
                           offs.data_ptr(), scratch.data_ptr(),
                           scratch.numel(), region.data_ptr(), n_groups, g, L,
                           tile, torch.cuda.current_stream().cuda_stream)
-        else:  # the parent's interface: int32 rows, a u32 park
+        else:  # int32 rows, a u32 park
             fn = _entry(lib, "rc_rans_encode", [ctypes.c_void_p] * 7 +
                         [ctypes.c_int] * 4 + [ctypes.c_void_p])
 

@@ -2,9 +2,13 @@
 """Where the PyTorch port's rans16 main path spends its time, on one CUDA card.
 
     python3 scripts_torch/profile_main_path.py [--corpus-mb 256] [--top 12]
+        [--adaptive]
 
 Corpus and config are ``chip_smoke.py``'s main path: Zipf(1.2) bytes from
-seed 0xC0, ``CodecConfig(profile="rans16", block_len=32768)``.  After one
+seed 0xC0, ``CodecConfig(profile="rans16", block_len=32768)``; with
+``--adaptive``, its adaptive path: the mixed corpus (seed 5),
+``CodecConfig(profile="rans16", per_group_tables=True, block_len=32)``.
+After one
 warm-up round trip (kernel build, allocator), each direction runs
 
 1. once unprofiled: its wall time;
@@ -76,6 +80,8 @@ def main() -> int:
     ap.add_argument("--corpus-mb", type=int, default=256)
     ap.add_argument("--top", type=int, default=12,
                     help="cProfile rows per direction")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="profile chip_smoke's adaptive path instead")
     args = ap.parse_args()
     import torch
 
@@ -83,7 +89,7 @@ def main() -> int:
         print("profile_main_path.py: no CUDA device", file=sys.stderr)
         return 1
     import range_coder_rust_tpu_torch as rt
-    from range_coder_rust_tpu_torch.testing import make_corpus
+    from range_coder_rust_tpu_torch.testing import make_corpus, mixed_corpus
 
     card = card_line()
 
@@ -91,8 +97,13 @@ def main() -> int:
         print(f"[{card}] {msg}", flush=True)
 
     n = args.corpus_mb << 20
-    data = make_corpus(n)
-    cfg = rt.CodecConfig(profile="rans16", block_len=32768)
+    if args.adaptive:
+        data = mixed_corpus(n).astype("uint8")
+        cfg = rt.CodecConfig(profile="rans16", per_group_tables=True,
+                             block_len=32)
+    else:
+        data = make_corpus(n)
+        cfg = rt.CodecConfig(profile="rans16", block_len=32768)
     blob = rt.encode(data, alphabet=256, config=cfg, device="cuda")
     if not (rt.decode(blob, device="cuda") == data).all():
         raise AssertionError("warm-up round trip is not exact")

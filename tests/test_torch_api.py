@@ -3,8 +3,9 @@
 The port's rans16 containers must be byte-equal to
 ``range_coder_rust_tpu.api.encode``'s for the same input and config, each
 package must decode the other's containers, corruption must raise
-typed errors of the same names (the port's own classes), and every path outside this slice must raise
-``NotImplementedError`` instead of falling back.
+typed errors of the same names (the port's own classes), and every path
+not ported yet (the planar profile) must raise ``NotImplementedError``
+instead of falling back.
 """
 
 import numpy as np
@@ -151,12 +152,15 @@ def test_codec_config_defaults_match_reference():
 
 
 @pytest.mark.parametrize("call", [
-    "planar_default", "raw_total", "wide_alphabet", "per_group_tables",
-    "sync_tiles", "decode_range", "planar_container", "per_group_container",
+    "planar_default", "raw_total", "wide_alphabet", "planar_container",
+    "planar_decode_range",
 ])
 def test_out_of_slice_paths_raise_not_implemented(call):
     data = zipf(1000, 256, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    planar = fmt.pack(k=16, alphabet=2, block_len=4, n_symbols=4,
+                      payloads=[b"\0" * 8],
+                      tables_c=np.array([1 << 15, 1 << 15]))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
         if call == "planar_default":
             rt.encode(data, device="cpu")
         elif call == "raw_total":
@@ -164,29 +168,10 @@ def test_out_of_slice_paths_raise_not_implemented(call):
                       device="cpu")
         elif call == "wide_alphabet":
             rt.encode(np.arange(2000), config=TCFG, device="cpu")
-        elif call == "per_group_tables":
-            rt.encode(data, config=rt.CodecConfig(
-                profile="rans16", per_group_tables=True), device="cpu")
-        elif call == "sync_tiles":
-            rt.encode(data, config=rt.CodecConfig(
-                profile="rans16", sync_tiles=4), device="cpu")
-        elif call == "decode_range":
-            rt.api.decode_range(rt.encode(data, config=TCFG, device="cpu"),
-                                0, 10, device="cpu")
         elif call == "planar_container":
-            blob = fmt.pack(k=16, alphabet=2, block_len=4, n_symbols=4,
-                            payloads=[b"\0" * 8],
-                            tables_c=np.array([1 << 15, 1 << 15]))
-            rt.decode(blob, device="cpu")
+            rt.decode(planar, device="cpu")
         else:
-            cont = fmt.unpack(rt.encode(data, config=TCFG, device="cpu"))
-            blob = fmt.pack(k=16, alphabet=cont.alphabet,
-                            block_len=cont.block_len,
-                            n_symbols=cont.n_symbols, payloads=cont.payloads,
-                            tables_c=cont.tables_c[None, :],
-                            per_block_tables=True, profile="rans16",
-                            group_lanes=G)
-            rt.decode(blob, device="cpu")
+            rt.api.decode_range(planar, 0, 2, device="cpu")
 
 
 def test_default_device_is_cuda():

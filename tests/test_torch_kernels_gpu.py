@@ -20,7 +20,7 @@ from range_coder_rust_tpu_torch import kernels, testing
 from range_coder_rust_tpu_torch import rans_codec as t_codec
 from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch.testing import (
-    KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
+    CASE_OPTIONS, KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
 
 pytestmark = pytest.mark.gpu
 
@@ -35,9 +35,12 @@ def cuda_device():
 @pytest.mark.parametrize("name", KERNEL_CASES)
 def test_cuda_kernels_match_plain_and_spec(name, cuda_device):
     rows, g, a = kernel_case(name)
-    errs, (st_p, sz_p, rg_p), _ = kernels_vs_plain(rows, g, a, cuda_device)
+    opts = CASE_OPTIONS.get(name, {})
+    errs, (st_p, sz_p, rg_p, _), _ = kernels_vs_plain(rows, g, a, cuda_device,
+                                                      **opts)
     assert errs == {"rans_encode": 0, "rans_decode": 0}
-    table = table_from_data_pow2(rows, a, 16)
+    table = table_from_data_pow2(
+        rows[:g] if opts.get("per_group") else rows, a, 16)
     s_states, s_regions, _ = rans.encode_lanes(rows[:g], table.c, table.cum)
     np.testing.assert_array_equal(st_p[:g].numpy().view(np.uint64), s_states)
     n0 = int(sz_p[0].sum())
@@ -58,6 +61,34 @@ def test_cuda_api_roundtrip_counts_launches(cuda_device):
     np.testing.assert_array_equal(out, data)
 
 
+@pytest.mark.parametrize("cfg", [
+    dict(per_group_tables=True, block_len=32),
+    dict(block_len=256, sync_tiles=2),
+    dict(per_group_tables=True, block_len=192, group_lanes=1024,
+         sync_tiles=1)])
+def test_cuda_adaptive_and_sync_paths_match_cpu(cfg, cuda_device):
+    """Per-group tables and sync points through the api on the card:
+    the container equals the one the plain versions write, and decode and
+    decode_range give the data back, each through the kernels."""
+    import range_coder_rust_tpu_torch as rt
+
+    data = testing.mixed_corpus(3 << 16)[:190_001]
+    c = rt.CodecConfig(profile="rans16", **cfg)
+    rt.reset_launch_counts()
+    blob = rt.encode(data, alphabet=256, config=c, device=cuda_device)
+    assert rt.launch_counts()["rans_encode"] >= 1
+    assert blob == rt.encode(data, alphabet=256, config=c, device="cpu")
+    out = rt.decode(blob, device=cuda_device)
+    np.testing.assert_array_equal(out.astype(np.int32), data)
+    L = cfg["block_len"]
+    for start, count in [(0, 100), (L * 7 - 3, 9), (190_001 - 50, 50),
+                         (70_000, 5000)]:
+        before = rt.launch_counts()["rans_decode"]
+        got = rt.api.decode_range(blob, start, count, device=cuda_device)
+        assert rt.launch_counts()["rans_decode"] > before
+        np.testing.assert_array_equal(got, data[start : start + count])
+
+
 def test_cuda_decode_bounds_match_plain(cuda_device):
     """Offsets outside the region are clamped to it and reads stop at the
     group's end, in the kernel exactly as in the plain version."""
@@ -65,7 +96,7 @@ def test_cuda_decode_bounds_match_plain(cuda_device):
     L = rows.shape[1]
     table = table_from_data_pow2(rows, a, 16)
     cum_c = t_codec.cum_table(table.cum, "cpu")
-    st, sz, rg = kernels.rans_encode_tiled(
+    st, sz, rg, _ = kernels.rans_encode_tiled(
         torch.from_numpy(rows), cum_c, group_lanes=g, tile=L)
     n0 = int(sz[0].sum())
     kw = dict(group_lanes=g, block_len=L, a_count=a, out_dtype=torch.uint8)
@@ -88,7 +119,7 @@ def test_cuda_decode_unaligned_region_matches_plain(cuda_device):
     L = rows.shape[1]
     table = table_from_data_pow2(rows, a, 16)
     cum_c = t_codec.cum_table(table.cum, "cpu")
-    st, sz, rg = kernels.rans_encode_tiled(
+    st, sz, rg, _ = kernels.rans_encode_tiled(
         torch.from_numpy(rows), cum_c, group_lanes=g, tile=32)
     n0 = int(sz[0].sum())
     padded = torch.cat([torch.zeros(3, dtype=torch.int16), rg])

@@ -20,7 +20,7 @@ from range_coder_rust_tpu.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch import kernels
 from range_coder_rust_tpu_torch import rans_codec as t_codec
 from range_coder_rust_tpu_torch.testing import (
-    KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
+    CASE_OPTIONS, KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
 
 torch.set_num_threads(1)
 
@@ -73,7 +73,7 @@ def jax_payloads():
 def _encode_plain(rows, table, g, L):
     tile, _ = t_codec._tile_geometry(L, g)
     cum = t_codec.cum_table(table.cum, "cpu")
-    states, sizes, region = kernels.rans_encode_tiled(
+    states, sizes, region, _ = kernels.rans_encode_tiled(
         torch.from_numpy(rows), cum, group_lanes=g, tile=tile)
     return states.numpy(), sizes.numpy(), region.numpy().view(np.uint16), tile
 
@@ -193,8 +193,8 @@ def test_kernel_cases_are_valid_on_cpu(name):
     decodes back to its rows here (``kernels_vs_plain`` raises otherwise),
     with the plain versions on both sides."""
     rows, g, a = kernel_case(name)
-    errs, (states, sizes, region), symbols = kernels_vs_plain(rows, g, a,
-                                                              "cpu")
+    errs, (states, sizes, region, syncs), symbols = kernels_vs_plain(
+        rows, g, a, "cpu", **CASE_OPTIONS.get(name, {}))
     assert errs == {"rans_encode": 0, "rans_decode": 0}
     assert rows.shape[0] % g == 0 and symbols.shape == rows.shape
     assert region.numel() == int(sizes.sum())
