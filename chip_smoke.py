@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's rans16 paths once on one CUDA card.
+"""Drive the PyTorch/CUDA port's paths once on one CUDA card.
 
     python3 chip_smoke.py [--corpus-mb 256]
 
@@ -43,12 +43,26 @@ Phases (any failure ends the run with a non-zero exit):
    kernel's sync states against the plain version's on the first group;
 8. the chunked encode (the path for inputs of 2^31 symbols or more) of
    the main path's corpus in slabs of 2^27 symbols: byte-equal to the
-   single call's container.
+   single call's container;
+9. the planar profile (``CodecConfig()``'s default: k = 16, L = 512,
+   device calls of 2^24 symbols; PyTorch ops on the card, no kernel of
+   its own) on the main path's corpus: an exact int32 round trip, its
+   bits/sym, walls and wall per step of the block loops, about 64
+   sampled blocks and the last one byte-equal to the port's scalar
+   ``Encoder``, the first 1024 blocks encoded again on the CPU
+   (byte-equal), and five ``decode_range`` slices;
+10. the other planar paths, one device call (16 MiB) each: raw-count
+   tables (total 2^24, where the reference switches its decode divide),
+   a 4096-symbol alphabet under a rans16 config (the planar fallback),
+   and per-block tables (``adaptive.encode_adaptive``, k = 12, L = 512,
+   on the adaptive path's mixed corpus); each exact, sampled blocks
+   against the scalar coder.
 
 Each path resets the launch counts just before it runs and reads them
-just after.  It prints one JSON line on the kernels (the main path's
-numbers under the contract's keys, the other paths' under added keys),
-then, as its last line, ``{"ok": true, "device": {...}}``.  It imports
+just after (the planar paths launch no rans16 kernel).  It prints one
+JSON line on the kernels (the main path's numbers under the contract's
+keys, the other paths' under added keys), then, as its last line,
+``{"ok": true, "device": {...}}``.  It imports
 neither jax nor the JAX package.
 """
 
@@ -180,15 +194,26 @@ class Recorder:
         setattr(self.module, self.name, self.fn)
 
 
-def plain_wall(fn):
-    """(result, host milliseconds) of one call, the card synchronised."""
+def sync(device) -> None:
     import torch
 
-    torch.cuda.synchronize()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def timed(fn, device):
+    """(result, host seconds) of one call, the card synchronised."""
+    sync(device)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def plain_wall(fn):
+    """(result, host milliseconds) of one call, the card synchronised."""
+    out, seconds = timed(fn, "cuda")
+    return out, seconds * 1e3
 
 
 def main_path(smoke: Smoke, corpus_mb: int) -> dict:
@@ -513,6 +538,230 @@ def chunked_path(smoke: Smoke, main: dict) -> int:
     return launched
 
 
+def scalar_payload(block, table) -> bytes:
+    """One block's stream from the port's scalar ``Encoder``: the golden
+    coder the planar payloads are held to."""
+    from range_coder_rust_tpu_torch import Encoder
+
+    enc = Encoder()
+    for s in block.tolist():
+        enc.encode(table, s)
+    return enc.finish()
+
+
+def check_sampled_blocks(what, data, cont, n_sample: int = 64) -> int:
+    """About ``n_sample`` evenly spaced blocks and the last one, each
+    byte-equal to the scalar coder's stream with the container's table
+    (the block's own for per-block tables; the last block padded as the
+    encoder pads it).  Returns how many were checked."""
+    import numpy as np
+
+    from range_coder_rust_tpu_torch import FreqTable
+
+    L, nb = cont.block_len, cont.n_blocks
+    tables = np.asarray(cont.tables_c)
+    shared = None if cont.per_block_tables else FreqTable.from_counts(tables)
+    pad = 0 if cont.per_block_tables else int(np.argmax(tables))
+    picks = sorted(set(np.linspace(0, nb - 1, n_sample).astype(int).tolist()
+                       + [nb - 1]))
+    for b in picks:
+        block = np.full(L, pad, np.int64)
+        part = data[b * L : (b + 1) * L]
+        block[: part.size] = part
+        table = (shared if shared is not None
+                 else FreqTable.from_counts(tables[b]))
+        if cont.payloads[b] != scalar_payload(block, table):
+            raise AssertionError(f"{what}: block {b} != the scalar coder's")
+    return len(picks)
+
+
+def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
+    """Encode with ``encode(device)`` and decode with ``api.decode`` on
+    ``device``, the launch counts reset before and read after: exact
+    round trip (int32), walls, bits/sym, sampled blocks against the
+    scalar coder, and the wall per step of the block loops (each device
+    call of ``chunk_symbols`` symbols runs L + 1 encode steps and L decode
+    steps)."""
+    import numpy as np
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import api, format as fmt
+
+    rt.reset_launch_counts()
+    blob, t_enc = timed(lambda: encode(device), device)
+    out, t_dec = timed(lambda: rt.decode(blob, device=device), device)
+    counts = rt.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what}: launched a rans16 kernel: {counts}")
+    if out.dtype != np.int32 or not np.array_equal(out, data):
+        raise AssertionError(f"{what}: round trip is not exact")
+    cont = fmt.unpack(blob)
+    checked = check_sampled_blocks(what, data, cont)
+    n, L = data.size, cont.block_len
+    calls = -(-cont.n_blocks // max(1, api._CHUNK_SYMBOLS // L))
+    res = {"blob": blob, "cont": cont, "enc_s": t_enc, "dec_s": t_dec,
+           "bits": 8 * len(blob) / max(n, 1),
+           "enc_step_ms": t_enc / (calls * (L + 1)) * 1e3,
+           "dec_step_ms": t_dec / (calls * L) * 1e3, "counts": counts}
+    smoke.say(f"{what}: n={n} L={L} blocks={cont.n_blocks} k={cont.k} "
+              f"({calls} device calls): round trip exact (int32), encode "
+              f"wall {t_enc:.4f} s = {n / t_enc / 1e9:.4f} GB/s "
+              f"({res['enc_step_ms']:.4f} ms of wall a step), decode wall "
+              f"{t_dec:.4f} s = {n / t_dec / 1e9:.4f} GB/s "
+              f"({res['dec_step_ms']:.4f} ms of wall a step), container "
+              f"{len(blob)} "
+              f"B = {res['bits']:.5f} bits/sym, {checked} sampled blocks == "
+              f"the scalar coder's, rans16 launches {counts}")
+    return res
+
+
+def planar_path(smoke, data, device="cuda") -> dict:
+    """Phase 9: the planar profile, ``CodecConfig()``'s default (k = 16,
+    L = 512, device calls of 2^24 symbols), on the main path's corpus:
+    the round trip, the first 1024 blocks encoded again on the CPU
+    (byte-equal payloads), and five ``decode_range`` slices."""
+    import numpy as np
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import api
+    from range_coder_rust_tpu_torch.models.table import Pow2Table
+
+    cfg = rt.CodecConfig()
+    res = planar_round_trip(smoke, "planar path", data, lambda dev: rt.encode(
+        data, alphabet=256, config=cfg, device=dev), device)
+    cont, L = res["cont"], cfg.block_len
+    c = np.asarray(cont.tables_c, np.uint32)
+    table = Pow2Table(c, np.concatenate([[0], np.cumsum(c)]).astype(np.uint32),
+                      cont.k)
+    nb = min(1024, data.size // L)
+    (code, lengths), cpu_s = timed(lambda: api._encode_rows(
+        data[: nb * L].reshape(nb, L), table,
+        rt.blocks.default_capacity(L, cont.k), "cpu"), "cpu")
+    if api._payloads(code, lengths) != cont.payloads[:nb]:
+        raise AssertionError("planar path: the CPU's first blocks differ")
+    smoke.say(f"planar path: the first {nb} blocks encoded again on the "
+              f"CPU ({cpu_s:.4f} s): payloads byte-equal")
+    n, chunk = data.size, cfg.chunk_symbols
+    ranges = {"first": (0, 4096), "in_block": (3 * L + 5, 100),
+              "two_blocks": (1000 * L - 7, 4096),
+              "call_boundary": (max(0, min(chunk, n) - 2048), 4096),
+              "last": (n - 4096, 4096)}
+    range_ms = {}
+    for name, (start, count) in ranges.items():
+        count = min(count, n - start)
+        got, wall = timed(lambda: rt.api.decode_range(
+            res["blob"], start, count, device=device), device)
+        if got.dtype != np.int32 or not np.array_equal(
+                got, data[start : start + count]):
+            raise AssertionError(f"planar decode_range {name} is not exact")
+        range_ms[name] = wall * 1e3
+        smoke.say(f"planar decode_range {name} [{start}, {start + count}) "
+                  f"exact: wall {wall * 1e3:.4f} ms")
+    res["range_ms"] = range_ms
+    return res
+
+
+def planar_loops(smoke, data, device="cuda") -> dict:
+    """The planar block loops alone, on the first device call's blocks
+    (2^24 symbols of ``data``, k = 16, L = 512), synchronised: ms per step
+    of the encode scan (L + 1 transitions) and of the decode (L), the
+    compaction's ms, and from ``torch.profiler`` over 64 steps of each,
+    the device kernels launched a step and the device's busy share (the
+    kernels' summed device time over the profiled wall)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from range_coder_rust_tpu_torch import blocks
+    from range_coder_rust_tpu_torch.models.table import build_table_pow2
+
+    L, k = 512, 16
+    nb = min(data.size, 1 << 24) // L
+    host = data[: nb * L].reshape(nb, L)
+    t = build_table_pow2(np.bincount(host.reshape(-1), minlength=256), k)
+    c = torch.from_numpy(t.c.astype(np.int64)).to(device)
+    cum = torch.from_numpy(t.cum.astype(np.int64)).to(device)
+    rows = blocks.upload_rows(host, device)
+    (emit, en, pos, lengths), t_scan = timed(
+        lambda: blocks.encode_scan(rows, c, cum, k=k), device)
+    cap = blocks.default_capacity(L, k)
+    code, t_comp = timed(lambda: blocks.compact_emissions(
+        emit, en, pos, capacity=cap), device)
+    dec, t_dec = timed(lambda: blocks.decode_blocks(
+        code, c, cum, k=k, block_len=L), device)
+    if not torch.equal(dec.long(), rows):
+        raise AssertionError("planar loops: decode != the rows")
+    res = {"enc_step_ms": t_scan / (L + 1) * 1e3,
+           "dec_step_ms": t_dec / L * 1e3, "compact_ms": t_comp * 1e3}
+    steps = 64
+    part = rows[:, :steps].contiguous()
+    code_part = blocks.encode_blocks(part, c, cum, k=k,
+                                     capacity=cap)[0]
+    for name, fn in (("encode", lambda: blocks.encode_scan(part, c, cum, k=k)),
+                     ("decode", lambda: blocks.decode_blocks(
+                         code_part, c, cum, k=k, block_len=steps))):
+        fn()
+        sync(device)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(fn, device)
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        res[f"{name}_kernels_a_step"] = len(kernels) / steps
+        res[f"{name}_busy_share"] = (busy_us / (wall * 1e6)
+                                     if kernels else None)
+    smoke.say(
+        f"planar loops, {nb} blocks x {L} on {device}: encode scan "
+        f"{t_scan:.4f} s = {res['enc_step_ms']:.4f} ms a step, compaction "
+        f"{res['compact_ms']:.4f} ms, decode {t_dec:.4f} s = "
+        f"{res['dec_step_ms']:.4f} ms a step; over {steps} steps "
+        f"(torch.profiler): encode {res['encode_kernels_a_step']:.2f} "
+        f"kernels a step, busy share {res['encode_busy_share']}, decode "
+        f"{res['decode_kernels_a_step']:.2f} kernels a step, busy share "
+        f"{res['decode_busy_share']} (None: the trace held no device "
+        f"time, not measured)")
+    return res
+
+
+def planar_other_paths(smoke, data, mixed, device="cuda") -> dict:
+    """Phase 10: the other planar paths, one device call (2^24 symbols)
+    each: raw-count tables (total = the corpus count, 2^24), a
+    4096-symbol alphabet under a rans16 config (the planar fallback), and
+    per-block tables (``encode_adaptive``, k = 12, L = 512)."""
+    import numpy as np
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import adaptive, testing
+
+    n = min(data.size, 1 << 24)
+    part, mixed = data[:n], mixed[:n]
+    raw_cfg = rt.CodecConfig(raw_total=True)
+    wide = testing.zipf(n, 4096, 0x4096, dtype=np.uint16)
+    wide_cfg = rt.CodecConfig(profile="rans16")
+    out = {
+        "raw_total": planar_round_trip(
+            smoke, "planar raw_total", part, lambda dev: rt.encode(
+                part, alphabet=256, config=raw_cfg, device=dev), device),
+        "fallback_4096": planar_round_trip(
+            smoke, "planar fallback, 4096 symbols", wide,
+            lambda dev: rt.encode(wide, alphabet=4096, config=wide_cfg,
+                                  device=dev), device),
+        "per_block": planar_round_trip(
+            smoke, "planar per-block tables", mixed,
+            lambda dev: adaptive.encode_adaptive(
+                mixed, alphabet=256, k=12, block_len=512, device=dev),
+            device),
+    }
+    total = int(np.asarray(out["raw_total"]["cont"].tables_c).sum())
+    if out["fallback_4096"]["cont"].profile != "planar" or total != n:
+        raise AssertionError("planar other paths: wrong container")
+    smoke.say(f"planar raw_total total = {total} (the reference's two-stage "
+              f"divide from 2^24 - 16 on); fallback container profile "
+              f"{out['fallback_4096']['cont'].profile!r}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=int, default=256,
@@ -556,6 +805,20 @@ def main() -> int:
     adapt = adaptive_path(smoke, args.corpus_mb)
     ra = random_access_path(smoke, main)
     chunked_launches = chunked_path(smoke, main)
+    import numpy as np
+
+    from range_coder_rust_tpu_torch import testing
+
+    planar = planar_path(smoke, main["data"])
+    planar["loops"] = planar_loops(smoke, main["data"])
+    mixed = testing.mixed_corpus(
+        min(main["data"].size, 1 << 24)).astype(np.uint8)
+    other = planar_other_paths(smoke, main["data"], mixed)
+    smoke.say("planar paths: " + json.dumps({
+        name: {k: r[k] for k in ("enc_s", "dec_s", "bits", "enc_step_ms",
+                                 "dec_step_ms")}
+        for name, r in {"main": planar, **other}.items()}
+        | {"loops": planar["loops"]}))
     for name in err:
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
 

@@ -1,24 +1,36 @@
-"""range_coder_rust_tpu_torch — the rans16 coder on PyTorch and CUDA.
+"""range_coder_rust_tpu_torch — the range coder on PyTorch and CUDA.
 
-The port of ``range_coder_rust_tpu`` (written in Pallas for a TPU) to
-PyTorch with hand-written CUDA kernels for Hopper (H100).  It writes and
-reads the same containers as ``range_coder_rust_tpu``, which stays the
-reference.  It imports nothing of that package: it keeps its own copies of
-what it needs (``format``, ``errors``, the NumPy table builder).
+The port of ``range_coder_rust_tpu`` (written in JAX and Pallas for a TPU)
+to PyTorch with hand-written CUDA kernels for Hopper (H100).  It writes
+and reads the same containers as ``range_coder_rust_tpu``, which stays the
+reference.  It imports nothing of that package: it keeps its own copies
+of what it needs (``format``, ``errors``, the table builders, the scalar
+coder).
 
 * :mod:`.api` — ``CodecConfig``, ``encode``, ``decode``, ``decode_range``,
   ``decode_bytes``;
-* :mod:`.rans_codec` — host orchestration of the rans16 profile;
+* :mod:`.rans_codec` — host orchestration of the rans16 profile, and
+  :mod:`.kernels`, its CUDA kernels' wrappers, their plain PyTorch
+  versions and their launch counts;
+* :mod:`.blocks`, :mod:`.adaptive`, :mod:`.ops` — the planar profile:
+  block-parallel coding as PyTorch ops, with shared, raw-count or
+  per-block tables;
 * :mod:`.format`, :mod:`.errors` — the container format and the typed
   errors (same bytes, same class names as the reference);
-* :mod:`.kernels` — the CUDA kernels' wrappers, their plain PyTorch
-  versions and their launch counts;
-* :mod:`.models.table` — the host-side pow2 table builder.
+* :mod:`.models` — the pow2 table builders and ``FreqTable``;
+* the scalar streaming API of the reference (``RangeCoder``,
+  ``Encoder``, ``Decoder``, ``PModel``, ``FreqTable``): pure Python, no
+  device.
 """
 
-from . import api
+from . import api, errors
 from .api import CodecConfig, decode, decode_bytes, encode
+from .core.decoder import Decoder
+from .core.encoder import Encoder
+from .core.rc64 import MASK64, MAX_BYTES_PER_SYMBOL, TOP8, TOP16, RangeCoder
 from .kernels import launch_counts, reset_launch_counts
+from .models.freq_table import FreqTable
+from .pmodel import PModel
 
 __version__ = "0.1.0"
 
@@ -30,5 +42,15 @@ __all__ = [
     "encode",
     "launch_counts",
     "reset_launch_counts",
+    "RangeCoder",
+    "Encoder",
+    "Decoder",
+    "PModel",
+    "FreqTable",
+    "errors",
+    "MASK64",
+    "TOP8",
+    "TOP16",
+    "MAX_BYTES_PER_SYMBOL",
     "__version__",
 ]

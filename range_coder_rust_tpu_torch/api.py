@@ -3,30 +3,44 @@
 The PyTorch counterpart of ``range_coder_rust_tpu/api.py``.  It takes the
 same ``CodecConfig``, writes the same container bytes and raises typed
 errors of the same names, the port's own (:mod:`.errors`).  Each entry
-point takes a ``device`` (default ``"cuda"``): the coder runs its CUDA
-kernels there, or their plain PyTorch versions when the device is the CPU.
+point takes a ``device`` (default ``"cuda"``): the coder runs there, the
+rans16 profile through its CUDA kernels (or their plain PyTorch versions
+when the device is the CPU), the planar profile as PyTorch ops.
 
-The rans16 profile is ported whole: one shared order-0 table or one per
-group (``per_group_tables``), sync points (``sync_tiles``) with
-:func:`decode_range`, and inputs of 2^31 symbols or more.  The paths not
-ported yet raise ``NotImplementedError`` naming their ROADMAP.md item:
-the planar profile (``CodecConfig``'s default), raw-total tables and the
-planar fallback for alphabets over 1023 symbols.
+Both profiles are ported whole.  rans16: one shared order-0 table or one
+per group (``per_group_tables``), sync points (``sync_tiles``) with
+:func:`decode_range`, and inputs of 2^31 symbols or more.  planar
+(``CodecConfig``'s default): a shared pow2 table, raw-count tables
+(``raw_total``), per-block tables (:mod:`.adaptive`), and the fallback
+from rans16 for alphabets over 1023 symbols.
+
+Orchestration is host-side and thin: cut the input into ``(B, L)``
+blocks, run the device coder over chunks of ``chunk_symbols``, trim the
+payloads by their lengths, and pack.  A block that overflows its capacity
+is encoded again with twice the room, never cut silently.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import zlib
 from typing import Optional
 
 import numpy as np
+import torch
 
 from . import format as fmt
 from . import rans_codec
+from .blocks import (FLUSH_BYTES, decode_blocks, decode_blocks_div,
+                     default_capacity, encode_blocks, encode_blocks_div,
+                     upload_rows)
 from .errors import ChecksumMismatch, ConfigError, ZeroFrequency
-from .models.table import Pow2Table
-from .rans_codec import not_ported
+from .models.table import Pow2Table, build_table_pow2
+
+#: cap on device working memory: symbols per device call
+_CHUNK_SYMBOLS = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +52,7 @@ class CodecConfig:
     #: 512 for planar, 65536 for rans16.
     block_len: Optional[int] = None
     with_checksums: bool = True
-    chunk_symbols: int = 1 << 24
+    chunk_symbols: int = _CHUNK_SYMBOLS
     #: "planar" = block-parallel range coder; "rans16" = interleaved word
     #: rANS (requires k == 16)
     profile: str = "planar"
@@ -106,6 +120,35 @@ def _as_symbols(data, alphabet: Optional[int]) -> tuple[np.ndarray, int]:
     return arr.astype(np.int32), a
 
 
+def _encode_rows(rows: np.ndarray, table: Pow2Table, capacity: int,
+                 device) -> tuple[np.ndarray, np.ndarray]:
+    """Encode ``(B, L)`` rows on ``device``, again with twice the capacity
+    while a block overflows."""
+    sym = upload_rows(rows, device)
+    c = torch.from_numpy(table.c.astype(np.int64)).to(device)
+    cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
+    while True:
+        code, lengths = encode_blocks(sym, c, cum, k=table.k,
+                                      capacity=capacity)
+        lengths_np = lengths.cpu().numpy()
+        if int(lengths_np.max()) <= capacity:
+            return code.cpu().numpy(), lengths_np
+        capacity *= 2  # rare adversarial blocks
+
+
+def _planar_rows(symbols: np.ndarray, pad_symbol: int, L: int) -> np.ndarray:
+    """The symbols padded with ``pad_symbol`` to whole ``(B, L)`` rows, at
+    their own width, or int32 where the pad does not fit it."""
+    if pad_symbol > np.iinfo(symbols.dtype).max:
+        symbols = symbols.astype(np.int32)
+    return rans_codec._padded_rows(symbols, pad_symbol,
+                                   max(1, math.ceil(symbols.size / L)), L)
+
+
+def _payloads(code: np.ndarray, lengths: np.ndarray) -> list:
+    return [code[i, : lengths[i]].tobytes() for i in range(code.shape[0])]
+
+
 def encode(
     data,
     *,
@@ -119,19 +162,38 @@ def encode(
     A shared order-0 table is built from the data's histogram unless one
     is supplied."""
     symbols, a = _as_symbols(data, alphabet)
+    n = int(symbols.size)
+
     if config.raw_total:
-        raise not_ported("raw_total tables")
-    if config.profile != "rans16":
-        raise not_ported("the planar profile")
-    if a > 1023 and config.per_group_tables:
-        raise ConfigError(
-            f"alphabet {a} exceeds the rans16 limit of 1023 symbols "
-            "and per_group_tables has no planar fallback; use an "
-            "alphabet <= 1023")
-    if a > 1023:
-        raise not_ported(
-            f"the planar fallback for a {a}-symbol alphabet")
-    if table is not None:
+        return _encode_raw(symbols, a, config, device)
+
+    if config.profile == "rans16" and a > 1023:
+        # the rans16 cum table holds A + 1 <= 1024 entries: wider
+        # alphabets fall back to the planar profile
+        if config.per_group_tables:
+            raise ConfigError(
+                f"alphabet {a} exceeds the rans16 limit of 1023 symbols "
+                "and per_group_tables has no planar fallback; use "
+                "adaptive.encode_adaptive or an alphabet <= 1023")
+        config = dataclasses.replace(
+            config, profile="planar", sync_tiles=0, group_lanes=None,
+            block_len=None if config.block_len == 65536
+            else config.block_len)
+
+    if config.profile == "rans16" and table is None:
+        return rans_codec.encode(
+            symbols, alphabet=a, table=None, block_len=config.block_len,
+            with_checksums=config.with_checksums,
+            per_group_tables=config.per_group_tables,
+            sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
+            device=device)
+
+    if table is None:
+        counts = np.bincount(symbols, minlength=a).astype(np.uint64)
+        if n == 0:
+            counts[0] = 1  # an empty input: any valid table
+        table = build_table_pow2(counts, config.k)
+    else:
         if table.alphabet < a:
             raise ConfigError(
                 f"table covers {table.alphabet} symbols, data needs {a}")
@@ -141,31 +203,88 @@ def encode(
         if np.any(present & (table.c == 0)):
             raise ZeroFrequency(
                 "data contains symbols with zero frequency in the given table")
-    return rans_codec.encode(
-        symbols,
-        alphabet=a,
-        table=table,
-        block_len=config.block_len,
-        with_checksums=config.with_checksums,
+
+    if config.profile == "rans16":
         # as in the reference, a supplied table is shared by all groups
-        per_group_tables=config.per_group_tables and table is None,
-        sync_tiles=config.sync_tiles,
-        group_lanes=config.group_lanes,
-        device=device,
+        return rans_codec.encode(
+            symbols, alphabet=a, table=table, block_len=config.block_len,
+            with_checksums=config.with_checksums,
+            sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
+            device=device)
+
+    L = config.block_len
+    rows = _planar_rows(symbols, int(np.argmax(table.c)), L)
+    rows_per_chunk = max(1, config.chunk_symbols // L)
+    capacity = default_capacity(L, table.k)
+    payloads = []
+    for start in range(0, rows.shape[0], rows_per_chunk):
+        payloads += _payloads(*_encode_rows(
+            rows[start : start + rows_per_chunk], table, capacity, device))
+    return fmt.pack(
+        k=table.k,
+        alphabet=a,
+        block_len=L,
+        n_symbols=n,
+        payloads=payloads,
+        tables_c=table.c,
+        per_block_tables=False,
+        with_checksums=config.with_checksums,
+    )
+
+
+def _encode_raw(symbols: np.ndarray, a: int, config: CodecConfig,
+                device) -> bytes:
+    """Planar encode with the raw histogram as the table (any u32 total):
+    the reference ``FreqTable``'s semantics (examples/sample_impl.rs:58-69),
+    coded with exact division (:func:`.blocks.encode_blocks_div`)."""
+    n = int(symbols.size)
+    L = config.block_len
+    counts = np.bincount(symbols, minlength=a).astype(np.uint64)
+    if counts.sum() == 0:
+        counts[0] = 1
+    if counts.sum() >= 1 << 32:
+        raise ConfigError("raw_total: corpus count exceeds u32 total_freq")
+    c = counts.astype(np.uint32)
+    cum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    total = int(counts.sum())
+
+    rows = _planar_rows(symbols, int(np.argmax(c)), L)
+    # worst case ~5 bytes a symbol at 32-bit totals, plus the flush
+    capacity = -(-(6 * L + 8) // 4) * 4
+    rows_per_chunk = max(1, config.chunk_symbols // L)
+    c_dev = torch.from_numpy(c.astype(np.int64)).to(device)
+    cum_dev = torch.from_numpy(cum).to(device)
+    payloads = []
+    for start in range(0, rows.shape[0], rows_per_chunk):
+        code, lengths = encode_blocks_div(
+            upload_rows(rows[start : start + rows_per_chunk], device),
+            c_dev, cum_dev, total, capacity=capacity)
+        lengths_np = lengths.cpu().numpy()
+        if int(lengths_np.max()) > capacity:
+            raise AssertionError("raw-total capacity bound exceeded")
+        payloads += _payloads(code.cpu().numpy(), lengths_np)
+    return fmt.pack(
+        k=0,
+        alphabet=a,
+        block_len=L,
+        n_symbols=n,
+        payloads=payloads,
+        tables_c=c,
+        per_block_tables=False,
+        with_checksums=config.with_checksums,
     )
 
 
 def decode(blob: bytes, *, verify_checksums: bool = True,
            device="cuda") -> np.ndarray:
-    """Decompress a container back to the symbol array, in the narrowest
-    unsigned dtype covering the alphabet (uint8 for byte corpora).
+    """Decompress a container back to the symbol array: rans16 in the
+    narrowest unsigned dtype covering the alphabet (uint8 for byte
+    corpora), planar as int32 (as the reference).
 
     Raises typed errors on malformed input (InvalidHeader,
     ChecksumMismatch)."""
-    cont = fmt.unpack(blob, verify_checksums=verify_checksums)
-    if cont.profile != "rans16":
-        raise not_ported("decoding planar containers")
-    return rans_codec.decode(cont, device=device)
+    return _decode_container(
+        fmt.unpack(blob, verify_checksums=verify_checksums), device)
 
 
 def decode_range(blob: bytes, start: int, count: int, *,
@@ -173,10 +292,11 @@ def decode_range(blob: bytes, start: int, count: int, *,
     """Decode only symbols ``[start, start + count)`` of a container, as
     int32.
 
-    Touches, and CRC-checks, only the groups of ``group_lanes *
-    block_len`` symbols that cover the range; the rest of the container
-    is parsed but never decoded.  Within a group it decodes only the step
-    intervals the range needs, from the nearest sync point when the
+    Touches, and CRC-checks, only the independent units that cover the
+    range: planar blocks of ``block_len`` symbols, or rans16 groups of
+    ``group_lanes * block_len`` symbols; the rest of the container is
+    parsed but never decoded.  Within a rans16 group it decodes only the
+    step intervals the range needs, from the nearest sync point when the
     container has them (``CodecConfig.sync_tiles``)."""
     cont = fmt.unpack(blob, verify_checksums=False)
     n = cont.n_symbols
@@ -185,9 +305,7 @@ def decode_range(blob: bytes, start: int, count: int, *,
             f"range [{start}, {start + count}) outside [0, {n})")
     if count == 0:
         return np.zeros(0, np.int32)
-    if cont.profile != "rans16":
-        raise not_ported("decode_range of planar containers")
-    span = cont.block_len * cont.group_lanes
+    span = cont.block_len * (cont.group_lanes or 1)
     b0 = start // span
     b1 = -(-(start + count) // span)
     if verify_checksums and cont.checksums is not None:
@@ -195,7 +313,19 @@ def decode_range(blob: bytes, start: int, count: int, *,
             actual = zlib.crc32(cont.payloads[i])
             if actual != int(cont.checksums[i]):
                 raise ChecksumMismatch(i, int(cont.checksums[i]), actual)
-    return _decode_range_rans16(cont, start, count, b0, b1, device)
+    if cont.profile == "rans16":
+        return _decode_range_rans16(cont, start, count, b0, b1, device)
+    sub = dataclasses.replace(
+        cont,
+        lengths=cont.lengths[b0:b1],
+        payloads=cont.payloads[b0:b1],
+        checksums=None,
+        tables_c=(cont.tables_c[b0:b1] if cont.per_block_tables
+                  else cont.tables_c),
+        n_symbols=min(n, b1 * span) - b0 * span,
+    )
+    lo = start - b0 * span
+    return _decode_container(sub, device)[lo : lo + count]
 
 
 def _decode_range_rans16(cont: fmt.Container, start: int, count: int,
@@ -242,6 +372,49 @@ def _decode_range_rans16(cont: fmt.Container, start: int, count: int,
                    else np.ones(ps.size, bool))
             out[ps[sel] - start] = rows[lanes[sel], steps[sel] - step0]
     return out
+
+
+def _decode_container(cont: fmt.Container, device) -> np.ndarray:
+    """Profile dispatch for a parsed container."""
+    if cont.profile == "rans16":
+        return rans_codec.decode(cont, device=device)
+    if cont.per_block_tables:
+        from .adaptive import decode_adaptive_container
+
+        return decode_adaptive_container(cont, device)
+    b, L = cont.n_blocks, cont.block_len
+    c = np.asarray(cont.tables_c, np.int64)
+    if cont.k == 0:  # raw-total container (FLAG_RAW_TOTAL)
+        decode_rows = functools.partial(decode_blocks_div,
+                                        total=int(c.sum()), block_len=L)
+    else:
+        decode_rows = functools.partial(decode_blocks, k=cont.k, block_len=L)
+    c_dev = torch.from_numpy(c).to(device)
+    cum_dev = torch.from_numpy(np.concatenate([[0], np.cumsum(c)])).to(device)
+    # capacity rounded up to 1 KiB, so that calls share shapes
+    cap = -(-max(int(cont.lengths.max()), FLUSH_BYTES) // 1024) * 1024
+    rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
+    out = np.empty(b * L, np.int32)
+    for start in range(0, b, rows_per_chunk):
+        stop = min(start + rows_per_chunk, b)
+        code = torch.from_numpy(_payload_matrix(cont, start, stop, cap))
+        dec = decode_rows(code.to(device), c_dev, cum_dev)
+        out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
+    return out[: cont.n_symbols]
+
+
+def _payload_matrix(cont: fmt.Container, start: int, stop: int, cap: int
+                    ) -> np.ndarray:
+    """Blocks ``[start, stop)`` as a zero-padded ``(rows, cap)`` uint8
+    matrix, filled by one masked scatter."""
+    lens = np.asarray(cont.lengths[start:stop], np.int64)
+    flat = np.frombuffer(b"".join(cont.payloads[start:stop]), np.uint8)
+    col = np.arange(cap, dtype=np.int64)
+    mask = col[None, :] < lens[:, None]
+    src = np.concatenate([[0], np.cumsum(lens)])[:-1, None] + col[None, :]
+    code = np.zeros((stop - start, cap), np.uint8)
+    code[mask] = flat[src[mask]]
+    return code
 
 
 def decode_bytes(blob: bytes, *, device="cuda", **kw) -> bytes:

@@ -1,11 +1,14 @@
-"""Host-side pow2 frequency tables for the rans16 profile (NumPy only).
+"""Pow2 frequency tables.
 
-A copy of the NumPy half of ``range_coder_rust_tpu/models/table.py``
-(``normalize_pow2_np``, ``Pow2Table``, ``build_table_pow2``,
-``table_from_data_pow2``).  That module also holds the device builder of
-the reference and cannot be imported without its array framework, so the
-port keeps its own copy of the host builder; ``tests/test_torch_table.py``
-holds the two equal.
+The counterpart of ``range_coder_rust_tpu/models/table.py``
+(``normalize_pow2``, ``Pow2Table``, ``build_table_pow2``,
+``table_from_data_pow2``).  That module cannot be imported without its
+array framework, so the port keeps its own copy.  The reference has a
+host and a device apportionment; the port has one, :func:`normalize_pow2`,
+batched over rows: it builds the host tables (one row on the CPU) and the
+planar per-block tables (one row a block, on their device).
+``tests/test_torch_table.py`` holds it equal to the reference's
+``normalize_pow2_np``.
 """
 
 from __future__ import annotations
@@ -13,49 +16,54 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from ..errors import TableError
 
 
-def normalize_pow2_np(counts: np.ndarray, k: int) -> np.ndarray:
-    """Rescale ``counts`` to sum exactly ``2**k``, keeping every nonzero
-    count >= 1: exact integer largest-remainder apportionment.
+def normalize_pow2(counts: torch.Tensor, k: int) -> torch.Tensor:
+    """Rescale every row of ``(..., A)`` counts to sum exactly ``2**k``,
+    keeping every nonzero count >= 1: exact integer largest-remainder
+    apportionment, on the counts' device; int64.
 
     1. ``base = max(floor(counts * 2^k / total), 1)`` for present symbols;
     2. a positive deficit gives +1 to the present symbols with the largest
        division remainders (ties to the smaller symbol index);
     3. a negative deficit (the min-1 clamps overshot) is taken from the
        largest allocations first, never below 1.
-    """
+
+    The reference's ``normalize_pow2`` (``models/table.py:61-115``) mapped
+    over rows, and its ``normalize_pow2_np`` on one row: their sorts are
+    stable, and so are these.  Each row needs a total below 2^31 and at
+    most ``2**k`` present symbols."""
     if not 1 <= k <= 16:
         raise ValueError(f"k must be in [1, 16], got {k}")
-    counts = counts.astype(np.uint64)
-    a = counts.shape[0]
-    total = int(counts.sum())
+    counts = counts.long()
+    a = counts.shape[-1]
+    total = counts.sum(-1, keepdim=True).clamp(min=1)
     present = counts > 0
+    q = (counts << k) // total
+    r = (counts << k) - q * total
+    base = torch.where(present, q.clamp(min=1), 0)
+    diff = (1 << k) - base.sum(-1, keepdim=True)
 
-    prod = counts * np.uint64(1 << k)
-    q = (prod // max(total, 1)).astype(np.int64)
-    r = (prod % max(total, 1)).astype(np.int64)
-    base = np.where(present, np.maximum(q, 1), 0).astype(np.int64)
-    diff = (1 << k) - int(base.sum())
+    # +1 to the `diff` present symbols with the largest remainders, ties
+    # to the smaller index; absent symbols sort last
+    order = torch.argsort(torch.where(present, -(r + 1), 0), dim=-1,
+                          stable=True)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(a, device=counts.device).expand_as(order))
+    bump = present & (rank < diff.clamp(min=0))
 
-    key = np.where(present, -(r + 1), 0)
-    order = np.argsort(key, kind="stable")
-    rank = np.empty(a, np.int64)
-    rank[order] = np.arange(a)
-    bump = (present & (rank < max(diff, 0))).astype(np.int64)
-
-    surplus = np.where(base > 0, base - 1, 0)
-    order_d = np.argsort(-(base + 1), kind="stable")
-    surplus_sorted = surplus[order_d]
-    before = np.concatenate([[0], np.cumsum(surplus_sorted)[:-1]])
-    need = max(-diff, 0)
-    give_sorted = np.clip(need - before, 0, surplus_sorted)
-    give = np.empty(a, np.int64)
-    give[order_d] = give_sorted
-
-    return (base + bump - give).astype(np.uint32)
+    # take -diff from the largest allocations first, never below 1
+    surplus = torch.where(base > 0, base - 1, 0)
+    order_d = torch.argsort(-(base + 1), dim=-1, stable=True)
+    surplus_sorted = surplus.gather(-1, order_d)
+    before = surplus_sorted.cumsum(-1) - surplus_sorted
+    give_sorted = torch.minimum(((-diff).clamp(min=0) - before).clamp(min=0),
+                                surplus_sorted)
+    give = torch.empty_like(give_sorted).scatter_(-1, order_d, give_sorted)
+    return base + bump - give
 
 
 class Pow2Table(NamedTuple):
@@ -88,7 +96,8 @@ def build_table_pow2(counts: np.ndarray, k: int) -> Pow2Table:
         raise TableError(
             f"{nnz} present symbols cannot share total 2**{k}; raise k"
         )
-    c = normalize_pow2_np(counts_np, k)
+    c = normalize_pow2(torch.from_numpy(counts_np.astype(np.int64))[None],
+                       k)[0].numpy().astype(np.uint32)
     if int(c.sum()) != 1 << k or np.any((counts_np > 0) & (c == 0)):
         raise TableError("pow2 normalization lost a symbol or the total")
     cum = np.concatenate([[0], np.cumsum(c)]).astype(np.uint32)

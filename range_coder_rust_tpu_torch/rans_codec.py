@@ -61,13 +61,6 @@ _SLAB_SYMBOLS = 1 << 30
 #: payload NT-word flag: sync-point section present
 _SYNC_FLAG = 1 << 31
 
-def not_ported(what: str) -> NotImplementedError:
-    """The error for a path of the planar profile, the one part of the
-    reference not ported yet."""
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: ROADMAP.md Queue A item 10 "
-        "(planar profile)")
-
 
 def _groups_per_call(L: int, g: int) -> int:
     return max(1, _BATCH_SYMBOLS // (g * L))

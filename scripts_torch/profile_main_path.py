@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the PyTorch port's rans16 main path spends its time, on one CUDA card.
+"""Where the PyTorch port's main path spends its time, on one CUDA card.
 
     python3 scripts_torch/profile_main_path.py [--corpus-mb 256] [--top 12]
-        [--adaptive]
+        [--adaptive | --planar]
 
 Corpus and config are ``chip_smoke.py``'s main path: Zipf(1.2) bytes from
 seed 0xC0, ``CodecConfig(profile="rans16", block_len=32768)``; with
 ``--adaptive``, its adaptive path: the mixed corpus (seed 5),
-``CodecConfig(profile="rans16", per_group_tables=True, block_len=32)``.
+``CodecConfig(profile="rans16", per_group_tables=True, block_len=32)``;
+with ``--planar``, its planar path: the same Zipf bytes with
+``CodecConfig()`` (planar, one device call a 16 MiB; the trace of a
+planar call holds some 40 kernels a step, so keep ``--corpus-mb`` at 16).
 After one
 warm-up round trip (kernel build, allocator), each direction runs
 
@@ -80,8 +83,11 @@ def main() -> int:
     ap.add_argument("--corpus-mb", type=int, default=256)
     ap.add_argument("--top", type=int, default=12,
                     help="cProfile rows per direction")
-    ap.add_argument("--adaptive", action="store_true",
-                    help="profile chip_smoke's adaptive path instead")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--adaptive", action="store_true",
+                       help="profile chip_smoke's adaptive path instead")
+    which.add_argument("--planar", action="store_true",
+                       help="profile chip_smoke's planar path instead")
     args = ap.parse_args()
     import torch
 
@@ -101,6 +107,9 @@ def main() -> int:
         data = mixed_corpus(n).astype("uint8")
         cfg = rt.CodecConfig(profile="rans16", per_group_tables=True,
                              block_len=32)
+    elif args.planar:
+        data = make_corpus(n)
+        cfg = rt.CodecConfig()
     else:
         data = make_corpus(n)
         cfg = rt.CodecConfig(profile="rans16", block_len=32768)

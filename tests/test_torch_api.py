@@ -2,10 +2,9 @@
 
 The port's rans16 containers must be byte-equal to
 ``range_coder_rust_tpu.api.encode``'s for the same input and config, each
-package must decode the other's containers, corruption must raise
-typed errors of the same names (the port's own classes), and every path
-not ported yet (the planar profile) must raise ``NotImplementedError``
-instead of falling back.
+package must decode the other's containers, and corruption must raise
+typed errors of the same names (the port's own classes).  The planar
+profile is held to the reference in ``test_torch_planar_api.py``.
 """
 
 import numpy as np
@@ -151,29 +150,6 @@ def test_codec_config_defaults_match_reference():
             getattr(j, f) for f in t.__dataclass_fields__]
 
 
-@pytest.mark.parametrize("call", [
-    "planar_default", "raw_total", "wide_alphabet", "planar_container",
-    "planar_decode_range",
-])
-def test_out_of_slice_paths_raise_not_implemented(call):
-    data = zipf(1000, 256, 4)
-    planar = fmt.pack(k=16, alphabet=2, block_len=4, n_symbols=4,
-                      payloads=[b"\0" * 8],
-                      tables_c=np.array([1 << 15, 1 << 15]))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item 10"):
-        if call == "planar_default":
-            rt.encode(data, device="cpu")
-        elif call == "raw_total":
-            rt.encode(data, config=rt.CodecConfig(raw_total=True),
-                      device="cpu")
-        elif call == "wide_alphabet":
-            rt.encode(np.arange(2000), config=TCFG, device="cpu")
-        elif call == "planar_container":
-            rt.decode(planar, device="cpu")
-        else:
-            rt.api.decode_range(planar, 0, 2, device="cpu")
-
-
 def test_default_device_is_cuda():
     """Nothing picks the CPU on its own: without a card the default
     device fails instead of running the plain versions."""
@@ -181,3 +157,5 @@ def test_default_device_is_cuda():
         pytest.skip("a CUDA card is present: the default device works")
     with pytest.raises((AssertionError, RuntimeError)):
         rt.encode(zipf(100, 16, 5), config=TCFG)
+    with pytest.raises((AssertionError, RuntimeError)):
+        rt.encode(zipf(100, 16, 5))  # the planar default

@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports, and codes, with jax and the
-JAX package blocked, and its own copies of the JAX package's ``errors``
+"""The PyTorch port stands alone: it imports, and codes (rans16, planar,
+planar per-block tables, the scalar coder), with jax and the JAX package
+blocked, and its own copies of the JAX package's ``errors``
 and ``format`` match the originals."""
 
 import inspect
@@ -48,6 +49,20 @@ blob = rt.encode(data, config=cfg, device="cpu")
 out = rt.decode(blob, device="cpu")
 assert out.dtype == np.uint8 and np.array_equal(out, data)
 assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0}
+from range_coder_rust_tpu_torch import adaptive
+for blob in (rt.encode(data, config=rt.CodecConfig(block_len=64),
+                       device="cpu"),
+             rt.encode(data, config=rt.CodecConfig(raw_total=True,
+                                                   block_len=64),
+                       device="cpu"),
+             adaptive.encode_adaptive(data, block_len=64, device="cpu")):
+    assert np.array_equal(rt.decode(blob, device="cpu"), data)
+table = rt.FreqTable.from_data(data[:50], 11)
+enc = rt.Encoder()
+for s in data[:50]:
+    enc.encode(table, int(s))
+dec = rt.Decoder(enc.finish())
+assert [dec.decode(table) for _ in range(50)] == list(data[:50])
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 assert "range_coder_rust_tpu_torch" in sys.modules

@@ -205,3 +205,27 @@ def test_cuda_encode_int16_symbols_outside_table_do_not_fault(cuda_device):
     cum = t_codec.cum_table(np.array([0, 1 << 15, 1 << 16]), cuda_device)
     kernels.rans_encode_tiled(rows, cum, group_lanes=128, tile=8)
     torch.cuda.synchronize()  # raises if the kernel faulted
+
+
+@pytest.mark.parametrize("mode", ["shared", "raw_total", "per_block"])
+def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
+    """The planar profile on the card (PyTorch ops on CUDA tensors): the
+    container equals the CPU's and decodes back, with no rans16 kernel
+    launched."""
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import adaptive
+
+    data = zipf(64 * 512 + 77, 256, 11, dtype=np.uint8)
+    if mode == "per_block":
+        def enc(device):
+            return adaptive.encode_adaptive(data, device=device)
+    else:
+        cfg = rt.CodecConfig(raw_total=mode == "raw_total")
+
+        def enc(device):
+            return rt.encode(data, config=cfg, device=device)
+    rt.reset_launch_counts()
+    blob = enc(cuda_device)
+    assert blob == enc("cpu")
+    np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
+    assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0}
