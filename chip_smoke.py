@@ -14,7 +14,8 @@ Phases (any failure ends the run with a non-zero exit):
    with c > 2^15, symbols with c = 1, the encode's u8 and u16 rows read
    by chunks or (L not a multiple of 16 bytes) symbol by symbol, and the
    decode's staged u16 stores with a ragged last stage, its direct-store
-   variant and its ring read past its window;
+   variant (u8 and u16 symbols), the widest groups (32768 lanes) and its
+   ring read past its window;
 4. the main path at full size: ``api.encode`` / ``api.decode`` of a 256 MB
    Zipf(1.2) byte corpus with ``CodecConfig(profile="rans16",
    block_len=32768)`` (4 groups of 2048 lanes), an exact round trip, and
@@ -56,13 +57,31 @@ Phases (any failure ends the run with a non-zero exit):
    a 4096-symbol alphabet under a rans16 config (the planar fallback),
    and per-block tables (``adaptive.encode_adaptive``, k = 12, L = 512,
    on the adaptive path's mixed corpus); each exact, sampled blocks
-   against the scalar coder.
+   against the scalar coder;
+11. the sharded rans16 path: the main path's rows, tables and decode
+   inputs through ``parallel.make_sharded_rans16`` over two shards on the
+   card (``[cuda:0, cuda:0]``; one below 128 MiB, where the main path is
+   one group): every output bit-identical to the single calls', each
+   kernel launched once a shard;
+12. two processes (``torch.multiprocessing``, spawned, a ``gloo`` process
+   group, both coding on ``cuda:0``) over ``parallel.multihost``: the main
+   path's corpus (read by each rank from one ``.npy`` file, memory-mapped)
+   with ``encode_multihost_rans16``, two groups a rank; rank 0's
+   container byte-equal to phase 4's, and ``decode_multihost_rans16``
+   exact on every rank; then its first 16 MiB with the planar
+   ``encode_multihost``, byte-equal to ``api.encode(..., CodecConfig())``.
+   Each rank's wall split into coding, gather and assembly; a rank that
+   fails or hangs (a time limit) fails the run;
+13. the command line, as subprocesses with ``--device cuda`` on the main
+   path's corpus as a file: ``encode`` (rans16, the default at k = 16,
+   ``--block-len 32768``), byte-equal to phase 4's container; ``decode``
+   and ``decode --start/--count`` exact; ``inspect`` and ``selftest``.
 
 Each path resets the launch counts just before it runs and reads them
-just after (the planar paths launch no rans16 kernel).  It prints one
-JSON line on the kernels (the main path's numbers under the contract's
-keys, the other paths' under added keys), then, as its last line,
-``{"ok": true, "device": {...}}``.  It imports
+just after (the planar paths launch no rans16 kernel).  Each phase's wall
+is printed.  It prints one JSON line on the kernels (the main path's
+numbers under the contract's keys, the other paths' under added keys),
+then, as its last line, ``{"ok": true, "device": {...}}``.  It imports
 neither jax nor the JAX package.
 """
 
@@ -70,8 +89,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -762,6 +784,292 @@ def planar_other_paths(smoke, data, mixed, device="cuda") -> dict:
     return out
 
 
+def sharded_path(smoke, main: dict, device="cuda") -> dict:
+    """Phase 11: the main path's kernel inputs through
+    ``make_sharded_rans16`` over two shards on one device; every output
+    must equal the single calls' (phase 4's), each kernel launched once a
+    shard.  Returns the launch counts and walls."""
+    import torch
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch.parallel import make_sharded_rans16
+
+    rows, cum, enc_kw, enc_k = main["enc"]
+    (states, region, grp_off, dcum), dec_kw, dec_k = main["dec"]
+    # a corpus cut below 128 MiB is one group: one shard
+    shards = 2 if (grp_off.numel() - 1) % 2 == 0 else 1
+    enc, dec = make_sharded_rans16(
+        [torch.device(device)] * shards, block_len=rows.shape[1],
+        a_count=dec_kw["a_count"])
+    rt.reset_launch_counts()
+    out, enc_s = timed(lambda: enc(rows, cum, **enc_kw), device)
+    sym, dec_s = timed(lambda: dec(
+        states, region, grp_off, dcum, group_lanes=dec_kw["group_lanes"],
+        out_dtype=dec_kw["out_dtype"]), device)
+    counts = rt.launch_counts()
+    n = int(enc_k[1].sum())
+    want = (enc_k[0], enc_k[1], enc_k[2][:n], enc_k[3])
+    if (not all(torch.equal(a, b) for a, b in zip(out, want))
+            or not torch.equal(sym, dec_k)):
+        raise AssertionError("sharded rans16 != the single calls")
+    if device == "cuda" and counts != {"rans_encode": shards,
+                                       "rans_decode": shards}:
+        raise AssertionError(f"sharded rans16 launches {counts}")
+    smoke.say(f"sharded rans16 over {shards} shards on {device}: encode "
+              f"{enc_s * 1e3:.4f} ms, decode {dec_s * 1e3:.4f} ms (host "
+              f"walls, synchronised), outputs bit-identical to the single "
+              f"calls', launches {counts}")
+    return {"counts": counts, "enc_ms": enc_s * 1e3, "dec_ms": dec_s * 1e3}
+
+
+def _table(c):
+    """A shared ``Pow2Table`` from a container's counts."""
+    import numpy as np
+
+    from range_coder_rust_tpu_torch.models.table import Pow2Table
+
+    c = np.asarray(c, np.uint32)
+    return Pow2Table(c, np.concatenate([[0], np.cumsum(c)]).astype(np.uint32),
+                     16)
+
+
+class Stopwatch:
+    """Wraps a module's function, summing the wall of its calls."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.fn = getattr(module, name)
+        self.seconds = 0.0
+
+    def __call__(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kw)
+        finally:
+            self.seconds += time.perf_counter() - t0
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def rank_main(rank: int, port: int, world: int, tmp: str, job: dict) -> None:
+    """One rank of phase 12 (spawned by ``multihost_path``): join the
+    gloo group, code this rank's groups and blocks on ``job["device"]``,
+    gather, and (rank 0) pack both containers into ``tmp``; write this
+    rank's walls and launch counts to ``tmp/rank<r>.json``."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch.parallel import multihost as mh
+
+    dev = job["device"]
+    t_start = time.perf_counter()
+    mh.initialize(f"localhost:{port}", world, rank)
+    data = np.load(os.path.join(tmp, "corpus.npy"), mmap_mode="r")
+    g, L = job["group_lanes"], job["block_len"]
+    ng = data.size // (g * L)
+    table = _table(job["rans16_c"])
+    lo, hi = mh.local_group_range(ng)
+    local = data[lo * g * L : hi * g * L].reshape(-1, L)
+    res = {"rank": rank, "setup_s": time.perf_counter() - t_start}
+    rt.reset_launch_counts()
+    with Stopwatch(mh, "_gather") as gather:
+        payloads, wall = timed(lambda: mh.encode_multihost_rans16(
+            local, table, block_len=L, n_groups=ng, group_lanes=g,
+            device=dev), dev)
+    res["rans16"] = {"coding_s": wall - gather.seconds,
+                     "gather_s": gather.seconds}
+    back, res["rans16"]["decode_s"] = timed(lambda: mh.decode_multihost_rans16(
+        payloads, table.c, block_len=L, group_lanes=g, device=dev), dev)
+    res["launches"] = rt.launch_counts()
+    if not np.array_equal(back, local):
+        raise AssertionError(f"rank {rank}: rans16 decode is not exact")
+    if rank == 0:
+        blob, res["rans16"]["assembly_s"] = timed(
+            lambda: mh.assemble_container(
+                payloads, k=16, alphabet=256, block_len=L,
+                n_symbols=data.size, tables_c=table.c, profile="rans16",
+                group_lanes=g), "cpu")
+        Path(tmp, "rans16.rc").write_bytes(blob)
+    del payloads, back
+
+    n, Lp = job["planar_n"], 512
+    c = np.asarray(job["planar_c"], np.uint32)
+    cum = np.concatenate([[0], np.cumsum(c)])
+    blo, bhi = mh.local_block_range(n // Lp)
+    rows = np.asarray(data[blo * Lp : bhi * Lp]).reshape(-1, Lp)
+    rt.reset_launch_counts()
+    with Stopwatch(mh, "_gather") as gather:
+        (payloads, _), wall = timed(lambda: mh.encode_multihost(
+            rows, c, cum, k=16, n_blocks=n // Lp, device=dev), dev)
+    res["planar"] = {"coding_s": wall - gather.seconds,
+                     "gather_s": gather.seconds}
+    if any(rt.launch_counts().values()):
+        raise AssertionError(f"planar multihost launched {rt.launch_counts()}")
+    if rank == 0:
+        blob, res["planar"]["assembly_s"] = timed(
+            lambda: mh.assemble_container(
+                payloads, k=16, alphabet=256, block_len=Lp, n_symbols=n,
+                tables_c=c), "cpu")
+        Path(tmp, "planar.rc").write_bytes(blob)
+    torch.distributed.destroy_process_group()
+    Path(tmp, f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_path(smoke, main: dict, tmp: str, device="cuda",
+                   limit_s: float = 300.0) -> dict:
+    """Phase 12: two spawned ranks over ``parallel.multihost`` (see
+    ``rank_main``); rank 0's rans16 container must be phase 4's and its
+    planar container ``api.encode``'s of the first 16 MiB.  Fails if a
+    rank fails or the ranks take more than ``limit_s`` seconds."""
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import format as fmt, rans_codec
+
+    data, blob, world = main["data"], main["blob"], 2
+    cont = fmt.unpack(blob)
+    if cont.n_blocks % world:
+        # a corpus cut below 128 MiB is one group: halve the lanes
+        blob = rt.encode(data, alphabet=256, config=rt.CodecConfig(
+            profile="rans16", block_len=cont.block_len // 2), device=device)
+        cont = fmt.unpack(blob)
+    n_planar = min(data.size, 1 << 24) // 512 * 512
+    planar_blob, planar_s = timed(lambda: rt.encode(
+        data[:n_planar], alphabet=256, config=rt.CodecConfig(),
+        device=device), device)
+    job = {"device": device, "group_lanes": cont.group_lanes,
+           "block_len": cont.block_len,
+           "rans16_c": np.asarray(cont.tables_c).tolist(),
+           "planar_n": n_planar,
+           "planar_c": np.asarray(fmt.unpack(planar_blob).tables_c).tolist()}
+    if data.size != cont.n_blocks * cont.group_lanes * cont.block_len:
+        raise AssertionError("phase 12 needs a corpus of whole groups")
+    # what the ranks' coding splits: one process coding every group
+    _, one_s = timed(lambda: rans_codec.encode_groups(
+        data.reshape(-1, cont.block_len), _table(cont.tables_c),
+        cont.block_len, cont.group_lanes, device=device), device)
+    np.save(os.path.join(tmp, "corpus.npy"), data)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(rank_main, args=(free_port(), world, tmp, job),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = t0 + limit_s
+    while not ctx.join(timeout=max(0.1, deadline - time.perf_counter())):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise AssertionError(f"multihost ranks still running after "
+                                 f"{limit_s} s")
+    wall = time.perf_counter() - t0
+    ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+             for r in range(world)]
+    if Path(tmp, "rans16.rc").read_bytes() != blob:
+        raise AssertionError("two-rank rans16 container != api.encode's")
+    if Path(tmp, "planar.rc").read_bytes() != planar_blob:
+        raise AssertionError("two-rank planar container != api.encode's")
+    for r in ranks:
+        for leg in ("rans16", "planar"):
+            x = r[leg]
+            smoke.say(
+                f"multihost rank {r['rank']} {leg}: coding "
+                f"{x['coding_s']:.4f} s, gather {x['gather_s']:.4f} s "
+                f"(both collectives, waiting for the other rank included)"
+                + (f", assembly {x['assembly_s']:.4f} s"
+                   if "assembly_s" in x else "")
+                + (f", decode of its groups {x['decode_s']:.4f} s"
+                   if "decode_s" in x else ""))
+        smoke.say(f"multihost rank {r['rank']}: start to first coding "
+                  f"{r['setup_s']:.4f} s, rans16 launches {r['launches']}")
+    smoke.say(f"multihost: one process coding all {cont.n_blocks} rans16 "
+              f"groups (rans_codec.encode_groups): {one_s:.4f} s")
+    smoke.say(f"multihost: 2 ranks ({wall:.4f} s in all, spawn included): "
+              f"rans16 container byte-equal to api.encode's "
+              f"({len(blob)} B), planar container of {n_planar} "
+              f"symbols byte-equal to api.encode's ({len(planar_blob)} B, "
+              f"api encode {planar_s:.4f} s)")
+    return {"ranks": ranks, "wall_s": wall, "one_process_s": one_s,
+            "launches": {k: [r["launches"][k] for r in ranks]
+                         for k in ("rans_encode", "rans_decode")}}
+
+
+def cli_path(smoke, main: dict, tmp: str, device="cuda") -> dict:
+    """Phase 13: ``python -m range_coder_rust_tpu_torch`` as subprocesses
+    on the main path's corpus as a file: encode (with selftest beside
+    it), then decode, decode --start/--count and inspect together.
+    Returns each command's wall."""
+    data, blob = main["data"], main["blob"]
+    src = Path(tmp, "corpus.bin")
+    data.tofile(src)
+    rc, out, part = (Path(tmp, n) for n in ("cli.rc", "cli.out", "part.out"))
+    L = main["enc"][0].shape[1]
+    g = main["enc"][2]["group_lanes"]
+    start, count = min(g * L, data.size - 2048) - 2048, 4096
+    dev = ["--device", device]
+
+    def run(batch: dict) -> dict:
+        """Run the commands together; each must exit 0 within 300 s."""
+        procs = {name: (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", PKG, *args], cwd=ROOT, text=True,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+            for name, args in batch.items()}
+        res = {}
+        try:
+            for name, (t0, p) in procs.items():
+                so, se = p.communicate(timeout=300)
+                res[name] = (time.perf_counter() - t0, so)
+                if p.returncode != 0:
+                    raise AssertionError(f"CLI {name} exited {p.returncode}:"
+                                         f"\n{se[-3000:]}")
+        finally:
+            for _, p in procs.values():
+                p.kill()
+        return res
+
+    walls = run({"encode": ["encode", str(src), "-o", str(rc),
+                            "--block-len", str(L), *dev],
+                 "selftest": ["selftest"]})
+    if rc.read_bytes() != blob:
+        raise AssertionError("CLI encode != api.encode's container")
+    if not walls["selftest"][1].startswith("selftest passed"):
+        raise AssertionError("CLI selftest")
+    walls |= run({"decode": ["decode", str(rc), "-o", str(out), *dev],
+                  "decode_range": ["decode", str(rc), "-o", str(part),
+                                   "--start", str(start), "--count",
+                                   str(count), *dev],
+                  "inspect": ["inspect", str(rc)]})
+    if out.read_bytes() != data.tobytes():
+        raise AssertionError("CLI decode != the corpus")
+    if part.read_bytes() != data[start : start + count].tobytes():
+        raise AssertionError("CLI decode --start/--count != the slice")
+    meta = json.loads(walls["inspect"][1])
+    if (meta["n_symbols"] != data.size or meta["profile"] != "rans16"
+            or meta["container_bytes"] != len(blob)):
+        raise AssertionError(f"CLI inspect: {meta}")
+    for name, (wall, so) in walls.items():
+        said = (json.dumps(meta) if name == "inspect"
+                else so.strip().splitlines()[-1])
+        smoke.say(f"CLI {name}: exit 0 in {wall:.4f} s (process wall): "
+                  f"{said[:200]}")
+    smoke.say(f"CLI on {device}: encode byte-equal to phase 4's container, "
+              f"decode exact, decode [{start}, {start + count}) exact, "
+              f"inspect n_symbols {meta['n_symbols']}")
+    return {name: wall for name, (wall, _) in walls.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=int, default=256,
@@ -799,21 +1107,36 @@ def main() -> int:
             if any(k in line for k in ("entry function", "registers", "spill")):
                 smoke.say(f"ptxas: {line.strip()}")
 
-    err = check_kernels(smoke)
-    main = main_path(smoke, args.corpus_mb)
-    vs = main_path_vs_plain(smoke, main)
-    adapt = adaptive_path(smoke, args.corpus_mb)
-    ra = random_access_path(smoke, main)
-    chunked_launches = chunked_path(smoke, main)
+    walls = {}
+
+    def phase(name, fn, *a):
+        """Run one phase and keep its wall."""
+        t0 = time.perf_counter()
+        out = fn(smoke, *a)
+        walls[name] = time.perf_counter() - t0
+        smoke.say(f"phase {name}: {walls[name]:.3f} s")
+        return out
+
+    err = phase("3 kernels vs plain", check_kernels)
+    main = phase("4 main path", main_path, args.corpus_mb)
+    vs = phase("5 main path vs plain", main_path_vs_plain, main)
+    adapt = phase("6 adaptive path", adaptive_path, args.corpus_mb)
+    ra = phase("7 random access", random_access_path, main)
+    chunked_launches = phase("8 chunked", chunked_path, main)
     import numpy as np
 
     from range_coder_rust_tpu_torch import testing
 
-    planar = planar_path(smoke, main["data"])
-    planar["loops"] = planar_loops(smoke, main["data"])
+    planar = phase("9 planar", planar_path, main["data"])
+    planar["loops"] = phase("9 planar loops", planar_loops, main["data"])
     mixed = testing.mixed_corpus(
         min(main["data"].size, 1 << 24)).astype(np.uint8)
-    other = planar_other_paths(smoke, main["data"], mixed)
+    other = phase("10 other planar", planar_other_paths, main["data"], mixed)
+    sharded = phase("11 sharded rans16", sharded_path, main)
+    with tempfile.TemporaryDirectory() as tmp:
+        multi = phase("12 two ranks", multihost_path, main, tmp)
+        cli = phase("13 CLI", cli_path, main, tmp)
+    smoke.say("phase walls (s): " + json.dumps(walls))
     smoke.say("planar paths: " + json.dumps({
         name: {k: r[k] for k in ("enc_s", "dec_s", "bits", "enc_step_ms",
                                  "dec_step_ms")}
@@ -841,8 +1164,11 @@ def main() -> int:
          "adaptive_bound_ms": adapt["bounds"][name][0],
          "adaptive_one_step_ms": adapt["one_step"][name],
          **({"sync_ms": ra["sync_ms"], "chunked_launches": chunked_launches}
-            if name == "rans_encode" else {"range_ms": ra["range_ms"]})}
+            if name == "rans_encode" else {"range_ms": ra["range_ms"]}),
+         "sharded_launches": sharded["counts"][name],
+         "multihost_launches": multi["launches"][name]}
         for name in ("rans_encode", "rans_decode")]}
+    smoke.say("CLI walls (s): " + json.dumps(cli))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

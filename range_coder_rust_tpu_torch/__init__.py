@@ -20,7 +20,20 @@ coder).
 * :mod:`.models` — the pow2 table builders and ``FreqTable``;
 * the scalar streaming API of the reference (``RangeCoder``,
   ``Encoder``, ``Decoder``, ``PModel``, ``FreqTable``): pure Python, no
-  device.
+  device;
+* :mod:`.rans` — the rans16 profile's NumPy spec, the oracle of its
+  kernels;
+* :mod:`.parallel` — scale-out: sharded coding over several devices
+  (:mod:`.parallel.dist`) and several processes over
+  ``torch.distributed`` that gather their payloads into one container
+  (:mod:`.parallel.multihost`);
+* :mod:`.native` — the C++ scalar golden coder (built with g++ at first
+  use), the CPU conformance and throughput anchor;
+* :mod:`.utils` — profiler regions and traces, compression metrics;
+* ``python -m range_coder_rust_tpu_torch`` — the command line
+  (:mod:`.__main__`: encode, decode, inspect, selftest; ``--device``).
+
+:mod:`.parallel` and :mod:`.native` are imported on demand.
 """
 
 from . import api, errors

@@ -17,7 +17,12 @@ from rans16 for alphabets over 1023 symbols.
 Orchestration is host-side and thin: cut the input into ``(B, L)``
 blocks, run the device coder over chunks of ``chunk_symbols``, trim the
 payloads by their lengths, and pack.  A block that overflows its capacity
-is encoded again with twice the room, never cut silently.
+is encoded again with twice the room, never cut silently.  The planar
+phases run in named profiler regions (``planar.histogram``,
+``planar.upload``, ``planar.encode_steps`` / ``planar.decode_steps``,
+``planar.d2h``, ``planar.payloads``, ``planar.payload_matrix``,
+``planar.pack``; :func:`.utils.profiling.annotate`), as rans16's do in
+:mod:`.rans_codec`.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from .blocks import (FLUSH_BYTES, decode_blocks, decode_blocks_div,
                      upload_rows)
 from .errors import ChecksumMismatch, ConfigError, ZeroFrequency
 from .models.table import Pow2Table, build_table_pow2
+from .utils.profiling import annotate
 
 #: cap on device working memory: symbols per device call
 _CHUNK_SYMBOLS = 1 << 24
@@ -124,15 +130,18 @@ def _encode_rows(rows: np.ndarray, table: Pow2Table, capacity: int,
                  device) -> tuple[np.ndarray, np.ndarray]:
     """Encode ``(B, L)`` rows on ``device``, again with twice the capacity
     while a block overflows."""
-    sym = upload_rows(rows, device)
-    c = torch.from_numpy(table.c.astype(np.int64)).to(device)
-    cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
+    with annotate("planar.upload", device):
+        sym = upload_rows(rows, device)
+        c = torch.from_numpy(table.c.astype(np.int64)).to(device)
+        cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
     while True:
-        code, lengths = encode_blocks(sym, c, cum, k=table.k,
-                                      capacity=capacity)
-        lengths_np = lengths.cpu().numpy()
-        if int(lengths_np.max()) <= capacity:
-            return code.cpu().numpy(), lengths_np
+        with annotate("planar.encode_steps", device):
+            code, lengths = encode_blocks(sym, c, cum, k=table.k,
+                                          capacity=capacity)
+        with annotate("planar.d2h", device):
+            lengths_np = lengths.cpu().numpy()
+            if int(lengths_np.max()) <= capacity:
+                return code.cpu().numpy(), lengths_np
         capacity *= 2  # rare adversarial blocks
 
 
@@ -189,10 +198,11 @@ def encode(
             device=device)
 
     if table is None:
-        counts = np.bincount(symbols, minlength=a).astype(np.uint64)
-        if n == 0:
-            counts[0] = 1  # an empty input: any valid table
-        table = build_table_pow2(counts, config.k)
+        with annotate("planar.histogram", device):
+            counts = np.bincount(symbols, minlength=a).astype(np.uint64)
+            if n == 0:
+                counts[0] = 1  # an empty input: any valid table
+            table = build_table_pow2(counts, config.k)
     else:
         if table.alphabet < a:
             raise ConfigError(
@@ -213,23 +223,27 @@ def encode(
             device=device)
 
     L = config.block_len
-    rows = _planar_rows(symbols, int(np.argmax(table.c)), L)
+    with annotate("planar.upload", device):  # the host padding
+        rows = _planar_rows(symbols, int(np.argmax(table.c)), L)
     rows_per_chunk = max(1, config.chunk_symbols // L)
     capacity = default_capacity(L, table.k)
     payloads = []
     for start in range(0, rows.shape[0], rows_per_chunk):
-        payloads += _payloads(*_encode_rows(
-            rows[start : start + rows_per_chunk], table, capacity, device))
-    return fmt.pack(
-        k=table.k,
-        alphabet=a,
-        block_len=L,
-        n_symbols=n,
-        payloads=payloads,
-        tables_c=table.c,
-        per_block_tables=False,
-        with_checksums=config.with_checksums,
-    )
+        code, lengths = _encode_rows(rows[start : start + rows_per_chunk],
+                                     table, capacity, device)
+        with annotate("planar.payloads", device):
+            payloads += _payloads(code, lengths)
+    with annotate("planar.pack", device):
+        return fmt.pack(
+            k=table.k,
+            alphabet=a,
+            block_len=L,
+            n_symbols=n,
+            payloads=payloads,
+            tables_c=table.c,
+            per_block_tables=False,
+            with_checksums=config.with_checksums,
+        )
 
 
 def _encode_raw(symbols: np.ndarray, a: int, config: CodecConfig,
@@ -397,9 +411,14 @@ def _decode_container(cont: fmt.Container, device) -> np.ndarray:
     out = np.empty(b * L, np.int32)
     for start in range(0, b, rows_per_chunk):
         stop = min(start + rows_per_chunk, b)
-        code = torch.from_numpy(_payload_matrix(cont, start, stop, cap))
-        dec = decode_rows(code.to(device), c_dev, cum_dev)
-        out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
+        with annotate("planar.payload_matrix", device):
+            code = torch.from_numpy(_payload_matrix(cont, start, stop, cap))
+        with annotate("planar.upload", device):
+            code = code.to(device)
+        with annotate("planar.decode_steps", device):
+            dec = decode_rows(code, c_dev, cum_dev)
+        with annotate("planar.d2h", device):
+            out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
     return out[: cont.n_symbols]
 
 

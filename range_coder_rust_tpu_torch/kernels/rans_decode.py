@@ -18,8 +18,8 @@ Both versions take
 
 and return the symbols, lane-major ``(NG * G, L)``, in ``out_dtype``
 (``torch.uint8``, ``torch.int16`` holding u16 bits, or ``torch.int32``).
-Per group this is exactly the reference's NumPy spec ``decode_lanes``
-(``range_coder_rust_tpu/rans.py``, named here, never imported),
+Per group this is exactly the NumPy spec :func:`..rans.decode_lanes`
+(the port's copy of ``range_coder_rust_tpu/rans.py``),
 whose symbol search is ``searchsorted(cum, slot, 'right') - 1``.  A lane
 that would refill past its group's region reads 0 instead, and offsets
 outside the region are clamped to it: a corrupt input decodes to garbage

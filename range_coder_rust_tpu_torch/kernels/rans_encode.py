@@ -24,8 +24,8 @@ mode), and a sync period ``sync_tiles`` (0: none), and return
   after the chain finishes time-tile ``j * sync_tiles``, the state the
   decoder holds before that tile (tile random access).
 
-Per group this is exactly the reference's NumPy spec ``encode_lanes``
-(``range_coder_rust_tpu/rans.py``, named here, never imported):
+Per group this is exactly the NumPy spec :func:`..rans.encode_lanes`
+(the port's copy of ``range_coder_rust_tpu/rans.py``):
 the region is its ``regions`` concatenated, and the sizes are its counts
 summed per tile.
 """

@@ -26,7 +26,11 @@ A full decode starts from the preamble and skips the sync states.
 
 The kernels (``kernels/rans_encode.py``, ``kernels/rans_decode.py``) run
 whole groups; this module batches groups, moves the data to and from the
-device, and assembles and parses the payloads.
+device, and assembles and parses the payloads.  Each phase runs in a
+named profiler region (``rans16.histogram``, ``rans16.upload``,
+``rans16.encode_kernel`` / ``rans16.decode_kernel``, ``rans16.d2h``,
+``rans16.payloads``, ``rans16.parse``, ``rans16.pack``;
+:func:`.utils.profiling.annotate`).
 """
 
 from __future__ import annotations
@@ -43,9 +47,9 @@ from .kernels.rans_decode import rans_decode_tiled
 from .kernels.rans_encode import n_syncs, rans_encode_tiled, tile_steps_for
 from .kernels.vreg import prep_cum_vreg, prep_cum_vreg_batch
 from .models.table import Pow2Table, build_table_pow2
+from .rans import GROUP_LANES
+from .utils.profiling import annotate
 
-#: default lanes per group; equals the reference's ``rans.GROUP_LANES``
-GROUP_LANES = 2048
 G = GROUP_LANES
 
 #: symbols per device call: bounds the encode's device working set (the
@@ -205,24 +209,29 @@ def encode_groups(symbols, table, block_len: int, group_lanes: int = None,
     for start in range(0, NG, gpc):
         stop = min(start + gpc, NG)
         nb = stop - start
-        rows = _upload_rows(symbols[start * g : stop * g], device)
-        states, sizes, region, syncs = rans_encode_tiled(
-            rows, _batch_tables(cums, start, stop), group_lanes=g, tile=tile,
-            sync_tiles=sync_tiles)
-        sizes_np = sizes.cpu().numpy()
-        group_hw = sizes_np.sum(axis=1, dtype=np.int64)
-        region_np = region[: int(group_hw.sum())].cpu().numpy().view("<u2")
-        pre6 = _states6(states, nb)
-        sync6 = _states6(syncs, nb) if n_sync else np.zeros((nb, 0), np.uint8)
-        bounds = np.concatenate([[0], np.cumsum(group_hw)])
-        for bg in range(nb):
-            payloads.append(
-                hdr
-                + sizes_np[bg].astype("<u4").tobytes()
-                + pre6[bg].tobytes()
-                + sync6[bg].tobytes()
-                + region_np[bounds[bg] : bounds[bg + 1]].tobytes()
-            )
+        with annotate("rans16.upload", device):
+            rows = _upload_rows(symbols[start * g : stop * g], device)
+        with annotate("rans16.encode_kernel", device):
+            states, sizes, region, syncs = rans_encode_tiled(
+                rows, _batch_tables(cums, start, stop), group_lanes=g,
+                tile=tile, sync_tiles=sync_tiles)
+        with annotate("rans16.d2h", device):
+            sizes_np = sizes.cpu().numpy()
+            group_hw = sizes_np.sum(axis=1, dtype=np.int64)
+            region_np = region[: int(group_hw.sum())].cpu().numpy().view("<u2")
+            pre6 = _states6(states, nb)
+            sync6 = (_states6(syncs, nb) if n_sync
+                     else np.zeros((nb, 0), np.uint8))
+        with annotate("rans16.payloads", device):
+            bounds = np.concatenate([[0], np.cumsum(group_hw)])
+            for bg in range(nb):
+                payloads.append(
+                    hdr
+                    + sizes_np[bg].astype("<u4").tobytes()
+                    + pre6[bg].tobytes()
+                    + sync6[bg].tobytes()
+                    + region_np[bounds[bg] : bounds[bg + 1]].tobytes()
+                )
     return payloads
 
 
@@ -302,21 +311,27 @@ def _batch_tables(cums: torch.Tensor, start: int, stop: int) -> torch.Tensor:
 def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
                   block_len: int, g: int, device) -> np.ndarray:
     """Parse, upload and decode one batch of group payloads."""
-    parsed = [_parse_payload(p, block_len, g) for p in payloads]
-    NT = parsed[0][0].shape[0]
-    if any(s.shape[0] != NT for s, _, _ in parsed):
-        raise InvalidHeader("rans16 payloads disagree on tile count")
-    group_hw = np.array([int(s.sum()) for s, _, _ in parsed], np.int64)
-    region = np.frombuffer(b"".join(bytes(r) for _, _, r in parsed), "<i2")
-    states = _states_tensor([p6 for _, p6, _ in parsed], g, device)
-    grp_off = torch.from_numpy(
-        np.concatenate([[0], np.cumsum(group_hw)]).astype(np.int64)).to(device)
+    with annotate("rans16.parse", device):
+        parsed = [_parse_payload(p, block_len, g) for p in payloads]
+        NT = parsed[0][0].shape[0]
+        if any(s.shape[0] != NT for s, _, _ in parsed):
+            raise InvalidHeader("rans16 payloads disagree on tile count")
+        group_hw = np.array([int(s.sum()) for s, _, _ in parsed], np.int64)
+        region = np.frombuffer(b"".join(bytes(r) for _, _, r in parsed),
+                               "<i2")
+    with annotate("rans16.upload", device):
+        states = _states_tensor([p6 for _, p6, _ in parsed], g, device)
+        grp_off = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(group_hw)]).astype(np.int64)).to(device)
+        region_dev = torch.from_numpy(region.copy()).to(device)
     out_np = _np_dtype(a_count)
-    sym = rans_decode_tiled(
-        states, torch.from_numpy(region.copy()).to(device), grp_off, cum,
-        group_lanes=g, block_len=block_len, a_count=a_count,
-        out_dtype=_TORCH_OUT[out_np])
-    return sym.cpu().numpy().view(out_np)
+    with annotate("rans16.decode_kernel", device):
+        sym = rans_decode_tiled(
+            states, region_dev, grp_off, cum, group_lanes=g,
+            block_len=block_len, a_count=a_count,
+            out_dtype=_TORCH_OUT[out_np])
+    with annotate("rans16.d2h", device):
+        return sym.cpu().numpy().view(out_np)
 
 
 def decode_tile_range(payload, table_c: np.ndarray, block_len: int,
@@ -419,34 +434,39 @@ def encode(
         # pad with the last data symbol: it is in the last group's
         # histogram (a zero-frequency pad would be uncodable)
         pad_symbol = int(symbols[-1]) if n else 0
-        rows = _upload_rows(_padded_rows(narrow, pad_symbol, ng * g, L),
-                            device)
-        counts = _histogram_groups(rows, alphabet, ng)
-        if n == 0:
-            counts[:] = 1
-        tables = [build_table_pow2(c, 16) for c in counts]
+        with annotate("rans16.upload", device):
+            rows = _upload_rows(_padded_rows(narrow, pad_symbol, ng * g, L),
+                                device)
+        with annotate("rans16.histogram", device):
+            counts = _histogram_groups(rows, alphabet, ng)
+            if n == 0:
+                counts[:] = 1
+            tables = [build_table_pow2(c, 16) for c in counts]
         payloads = encode_groups(rows, tables, L, g, sync_tiles=sync_tiles,
                                  device=device)
         tables_c = np.stack([t.c for t in tables])
     else:
         if table is None:
-            table = build_table_pow2(_host_counts(narrow, alphabet), 16)
-        rows = _padded_rows(narrow, int(np.argmax(table.c)), ng * g, L)
+            with annotate("rans16.histogram", device):
+                table = build_table_pow2(_host_counts(narrow, alphabet), 16)
+        with annotate("rans16.upload", device):  # the host padding
+            rows = _padded_rows(narrow, int(np.argmax(table.c)), ng * g, L)
         payloads = encode_groups(rows, table, L, g, sync_tiles=sync_tiles,
                                  device=device)
         tables_c = table.c
-    return fmt.pack(
-        k=16,
-        alphabet=alphabet,
-        block_len=L,
-        n_symbols=n,
-        payloads=payloads,
-        tables_c=tables_c,
-        per_block_tables=per_group_tables,
-        with_checksums=with_checksums,
-        profile="rans16",
-        group_lanes=g,
-    )
+    with annotate("rans16.pack", device):
+        return fmt.pack(
+            k=16,
+            alphabet=alphabet,
+            block_len=L,
+            n_symbols=n,
+            payloads=payloads,
+            tables_c=tables_c,
+            per_block_tables=per_group_tables,
+            with_checksums=with_checksums,
+            profile="rans16",
+            group_lanes=g,
+        )
 
 
 def _host_counts(narrow: np.ndarray, alphabet: int) -> np.ndarray:

@@ -7,11 +7,13 @@ length across two 128-lane groups, non-pow2 and wide alphabets, leading
 zero-frequency symbols, a symbol with c > 2^15, two tiles per group,
 several lanes per decode thread, and the decode kernel's edges: u16
 symbols staged with a ragged last stage (L = 25), its direct-store
-variant (a group too wide for the stage), a stream dense enough
-(8 bits/symbol) to outrun a ring narrower than the worst case, and
-symbols of frequency 1 (c = 1, where the encode's reciprocal divide
-takes q = x).  The cases of :data:`CASE_OPTIONS` run with one table per
-group (a group of one symbol among them, c = 2^16) and with sync points:
+variant (a group too wide for the stage) with u8 and with u16 symbols,
+the widest groups (32768 lanes: 32 lanes a decode thread, where ptxas
+reports spills), a stream dense enough (8 bits/symbol) to outrun a ring
+narrower than the worst case, and symbols of frequency 1 (c = 1, where
+the encode's reciprocal divide takes q = x).  The cases of
+:data:`CASE_OPTIONS` run with one table per group (a group of one symbol
+among them, c = 2^16) and with sync points:
 the encode's sync states are compared too, and the decode also runs from
 a sync state over a sub-range of tiles, as ``decode_tile_range`` drives
 it.  All outputs are integers, so every comparison is exact.
@@ -75,7 +77,8 @@ KERNEL_CASES = ["G2048_L64_NG2", "odd_tile_G128_L63", "A129", "A400", "A1023",
                 "G4096_L16_two_lanes_per_thread", "G2048_L25_NG2_A400",
                 "G8192_L24_direct_stores", "G4096_L32_uniform_ring_fallback",
                 "c_1_rare_symbols", "G1024_L192_per_group_sync1",
-                "G2048_L128_per_group_A400_sync2", "G128_L1536_sync1"]
+                "G2048_L128_per_group_A400_sync2", "G128_L1536_sync1",
+                "G4096_L16_A400_u16_direct_stores", "G32768_L16_widest"]
 
 #: kernels_vs_plain's options for the cases that need them: one table per
 #: group, and a sync period
@@ -141,6 +144,14 @@ def kernel_case(name: str) -> Tuple[np.ndarray, int, int]:
     elif name == "G128_L1536_sync1":
         g, L, ng = 128, 1536, 1  # 3 tiles of 512 steps
         data = zipf(ng * g * L, a, 14)
+    elif name == "G4096_L16_A400_u16_direct_stores":
+        # u16 symbols need 2-byte slots: the stage no longer fits at 4096
+        g, L, a = 4096, 16, 400
+        data = zipf(ng * g * L, a, 15, alpha=0.9)
+    elif name == "G32768_L16_widest":
+        # 8 tiles of 2 steps; 1024 decode threads of 32 lanes each
+        g, L, ng = 32768, 16, 1
+        data = zipf(ng * g * L, a, 16)
     else:
         raise KeyError(name)
     return data.reshape(-1, L), g, a

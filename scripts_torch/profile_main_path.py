@@ -20,7 +20,9 @@ warm-up round trip (kernel build, allocator), each direction runs
    summed over the trace's device events, and the device busy share, the
    union of those events' intervals over the call's wall time.  Host ops
    such as ``aten::to`` are not summed: the copies they issue are already
-   device events of their own.
+   device events of their own.  The codec's named regions
+   (``rans16.*``, ``planar.*``; ``utils.profiling.annotate``) are listed
+   with their host wall, summed over their calls.
 
 Every line carries the card's name and power limit.  It imports no jax.
 """
@@ -52,19 +54,26 @@ def top_self_time(fn, top: int):
     return rows[:top]
 
 
+#: name prefixes of the codec's profiler regions
+REGIONS = ("rans16.", "planar.")
+
+
 def device_time(fn):
-    """(wall s, {device event name: (count, us)}, busy us) of one call
-    under torch.profiler.  Busy is the union of the device events'
-    intervals."""
+    """(wall s, {device event name: (count, us)}, busy us, {region name:
+    (count, host us)}) of one call under torch.profiler.  Busy is the
+    union of the device events' intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_ms = plain_wall(fn)
-    per, spans = {}, []
+    per, spans, regions = {}, [], {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
+            if e.name.startswith(REGIONS):
+                n, us = regions.get(e.name, (0, 0.0))
+                regions[e.name] = (n + 1, us + e.time_range.elapsed_us())
             continue
         t0, t1 = e.time_range.start, e.time_range.end
         n, us = per.get(e.name, (0, 0.0))
@@ -75,7 +84,7 @@ def device_time(fn):
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
-    return wall_ms / 1e3, per, busy
+    return wall_ms / 1e3, per, busy, regions
 
 
 def main() -> int:
@@ -128,7 +137,10 @@ def main() -> int:
         for tt, ct, nc, where in top_self_time(fn, args.top):
             say(f"{name} cProfile self {tt:.4f} s cum {ct:.4f} s "
                 f"calls {nc}: {where}")
-        wall, per, busy = device_time(fn)
+        wall, per, busy, regions = device_time(fn)
+        for name_r, (cnt, us) in sorted(regions.items(),
+                                        key=lambda kv: -kv[1][1]):
+            say(f"{name} region {name_r}: host {us / 1e3:.3f} ms x{cnt}")
         if not per:
             say(f"{name} torch.profiler: no device events in the trace; "
                 "device time not measured")

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports, and codes (rans16, planar,
-planar per-block tables, the scalar coder), with jax and the JAX package
-blocked, and its own copies of the JAX package's ``errors``
-and ``format`` match the originals."""
+planar per-block tables, the scalar coder, the CLI, the golden coder and
+the scale-out modules), with jax and the JAX package blocked, and its own
+copies of the JAX package's ``errors`` and ``format`` match the
+originals."""
 
 import inspect
 import re
@@ -63,6 +64,24 @@ for s in data[:50]:
     enc.encode(table, int(s))
 dec = rt.Decoder(enc.finish())
 assert [dec.decode(table) for _ in range(50)] == list(data[:50])
+import contextlib, io, os, tempfile
+from range_coder_rust_tpu_torch import parallel, rans, utils
+from range_coder_rust_tpu_torch.__main__ import main
+from range_coder_rust_tpu_torch.native import golden
+said = io.StringIO()
+with contextlib.redirect_stdout(said), tempfile.TemporaryDirectory() as tmp:
+    assert main(["selftest"]) == 0
+    src, rc, back = (os.path.join(tmp, n) for n in ("in", "rc", "out"))
+    data.tofile(src)
+    assert main(["encode", src, "-o", rc, "--block-len", "16",
+                 "--group-lanes", "128", "--device", "cpu"]) == 0
+    assert main(["decode", rc, "-o", back, "--device", "cpu"]) == 0
+    assert open(back, "rb").read() == data.tobytes()
+assert said.getvalue().startswith("selftest passed")
+tab = (table.counts(), table.cum_counts(), table.total_freq())
+code = golden.encode(data[:50], *tab)
+assert rt.Decoder(code).decode(table) == data[0]
+assert np.array_equal(golden.decode(code, 50, *tab), data[:50])
 loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not loaded, loaded
 assert "range_coder_rust_tpu_torch" in sys.modules

@@ -8,15 +8,15 @@ machine run it as
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
 
 Outputs are integers: kernel and plain version must be identical, and
-both must equal the NumPy spec ``range_coder_rust_tpu.rans.encode_lanes``.
+both must equal the NumPy spec ``range_coder_rust_tpu_torch.rans.encode_lanes``
+(the port's copy of the JAX package's).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from range_coder_rust_tpu import rans
-from range_coder_rust_tpu_torch import kernels, testing
+from range_coder_rust_tpu_torch import kernels, rans, testing
 from range_coder_rust_tpu_torch import rans_codec as t_codec
 from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch.testing import (
@@ -139,7 +139,9 @@ def test_cuda_decode_unaligned_region_matches_plain(cuda_device):
 @pytest.mark.parametrize("name,staged", [
     ("G2048_L64_NG2", True), ("G2048_L25_NG2_A400", True),
     ("G4096_L16_two_lanes_per_thread", True),
-    ("G8192_L24_direct_stores", False)])
+    ("G8192_L24_direct_stores", False),
+    ("G4096_L16_A400_u16_direct_stores", False),
+    ("G32768_L16_widest", False)])
 def test_cuda_decode_plan_variant(name, staged, cuda_device):
     """The staged and direct-store variants run where the kernel's header
     says, within the card's shared memory."""
@@ -229,3 +231,54 @@ def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     assert blob == enc("cpu")
     np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
     assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0}
+
+
+@pytest.mark.parametrize("per_group", [False, True])
+def test_cuda_sharded_rans16_matches_single_call(per_group, cuda_device):
+    """Two shards on one card: each kernel launches once a shard, and the
+    outputs equal one unsharded call's."""
+    from range_coder_rust_tpu_torch.parallel import make_sharded_rans16
+
+    rows, g, a = kernel_case("G1024_L192_per_group_sync1")
+    rows = np.concatenate([rows, rows[::-1]])  # 4 groups
+    L = rows.shape[1]
+    ng = rows.shape[0] // g
+    tables = ([table_from_data_pow2(rows[i * g : (i + 1) * g], a, 16).cum
+               for i in range(ng)] if per_group
+              else table_from_data_pow2(rows, a, 16).cum)
+    cum = t_codec.cum_table(np.stack(tables) if per_group else tables,
+                            cuda_device)
+    dev_rows = torch.from_numpy(rows.astype(np.uint8)).to(cuda_device)
+    kw = dict(group_lanes=g, tile=64, sync_tiles=1)
+    one = kernels.rans_encode_tiled(dev_rows, cum, **kw)
+    enc, dec = make_sharded_rans16([cuda_device] * 2, block_len=L,
+                                   a_count=a, per_group_tables=per_group)
+    kernels.reset_launch_counts()
+    states, sizes, region, syncs = enc(dev_rows, cum, **kw)
+    grp_off = torch.cat([sizes.new_zeros(1, dtype=torch.int64),
+                         sizes.sum(1).cumsum(0)])
+    out = dec(states, region, grp_off, cum, group_lanes=g,
+              out_dtype=torch.uint8)
+    assert kernels.launch_counts() == {"rans_encode": 2, "rans_decode": 2}
+    n = int(one[1].sum())
+    for got, want in zip((states, sizes, region, syncs),
+                         (one[0], one[1], one[2][:n], one[3])):
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(out.cpu().numpy(), rows)
+
+
+def test_cuda_cli_encode_matches_cpu(tmp_path, cuda_device):
+    """The CLI's encode with --device cuda writes the --device cpu file,
+    and its decode on the card gives the input back."""
+    from range_coder_rust_tpu_torch.__main__ import main
+
+    src = tmp_path / "in.bin"
+    data = zipf(2048 * 40 + 11, 256, 12, dtype=np.uint8)
+    src.write_bytes(data.tobytes())
+    out = {d: tmp_path / f"{d}.rc" for d in ("cuda", "cpu")}
+    for d, path in out.items():
+        assert main(["encode", str(src), "-o", str(path), "--device", d]) == 0
+    assert out["cuda"].read_bytes() == out["cpu"].read_bytes()
+    back = tmp_path / "back.bin"
+    assert main(["decode", str(out["cuda"]), "-o", str(back)]) == 0
+    assert back.read_bytes() == data.tobytes()
