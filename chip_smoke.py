@@ -75,10 +75,18 @@ Phases (any failure ends the run with a non-zero exit):
 13. the command line, as subprocesses with ``--device cuda`` on the main
    path's corpus as a file: ``encode`` (rans16, the default at k = 16,
    ``--block-len 32768``), byte-equal to phase 4's container; ``decode``
-   and ``decode --start/--count`` exact; ``inspect`` and ``selftest``.
+   and ``decode --start/--count`` exact; ``inspect`` and ``selftest``;
+14. the bench command (``range_coder_rust_tpu_torch/bench.py``) as
+   subprocesses: ``bench --mb <corpus MiB>`` with
+   ``RC_BENCH_PROFILE=rans16``, then ``bench --mb 16`` with
+   ``RC_BENCH_PROFILE=planar``; each exits 0 and its JSON line is printed
+   here; the rans16 line's container bits/sym equal phase 4's, and at
+   256 MiB its scalar baseline reads the reference's 5.2923 bits/sym
+   (``BENCH_256MB_r05.json``).
 
 Each path resets the launch counts just before it runs and reads them
-just after (the planar paths launch no rans16 kernel).  Each phase's wall
+just after (the planar paths launch no rans16 kernel; the CLI and the
+bench run in processes of their own).  Each phase's wall
 is printed.  It prints one JSON line on the kernels (the main path's
 numbers under the contract's keys, the other paths' under added keys),
 then, as its last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -1070,6 +1078,51 @@ def cli_path(smoke, main: dict, tmp: str, device="cuda") -> dict:
     return {name: wall for name, (wall, _) in walls.items()}
 
 
+#: the reference's scalar baseline on the 256 MiB corpus's first 4 MiB
+#: (``BENCH_256MB_r05.json``): a property of the bytes, not of a chip
+SCALAR_BITS_256MB = 5.2923
+
+
+def bench_path(smoke, main: dict, corpus_mb: int) -> dict:
+    """Phase 14: ``python -m range_coder_rust_tpu_torch bench`` as a
+    subprocess, rans16 at the main path's corpus size, then planar at
+    16 MiB.  Each must exit 0 within 300 s; returns each JSON line and
+    the process wall under ``wall_s``."""
+    runs = {"rans16": corpus_mb, "planar": min(corpus_mb, 16)}
+    lines = {}
+    for profile, mb in runs.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "bench", "--mb", str(mb),
+             "--device", "cuda"], cwd=ROOT, text=True, capture_output=True,
+            env={**os.environ, "RC_BENCH_PROFILE": profile}, timeout=300)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"bench {profile} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-3000:]}")
+        for said in proc.stderr.strip().splitlines():
+            smoke.say(f"bench {profile} log: {said}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        smoke.say(f"bench {profile} --mb {mb}: exit 0 in {wall:.4f} s "
+                  f"(process wall): {json.dumps(line)}")
+        lines[profile] = dict(line, wall_s=wall)
+    r16 = lines["rans16"]
+    bits, n = r16["bits_per_symbol_container"], main["data"].size
+    want = 8 * len(main["blob"]) / n
+    # the bench's container holds the whole groups: the corpus, at any
+    # size that fills them
+    if r16["groups"] * 2048 * r16["lane_len"] == n and bits != want:
+        raise AssertionError(f"bench rans16 {bits} bits/sym, phase 4's "
+                             f"container {want}")
+    scalar = r16["scalar_bits_per_symbol"]
+    if corpus_mb == 256 and round(scalar, 4) != SCALAR_BITS_256MB:
+        raise AssertionError(f"bench scalar baseline {scalar} bits/sym, the "
+                             f"reference's {SCALAR_BITS_256MB}")
+    smoke.say(f"bench: rans16 container {bits} bits/sym == phase 4's, "
+              f"scalar baseline {scalar} bits/sym")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--corpus-mb", type=int, default=256,
@@ -1136,6 +1189,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         multi = phase("12 two ranks", multihost_path, main, tmp)
         cli = phase("13 CLI", cli_path, main, tmp)
+    phase("14 bench", bench_path, main, args.corpus_mb)
     smoke.say("phase walls (s): " + json.dumps(walls))
     smoke.say("planar paths: " + json.dumps({
         name: {k: r[k] for k in ("enc_s", "dec_s", "bits", "enc_step_ms",

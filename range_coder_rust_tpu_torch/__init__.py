@@ -17,7 +17,9 @@ coder).
   per-block tables;
 * :mod:`.format`, :mod:`.errors` — the container format and the typed
   errors (same bytes, same class names as the reference);
-* :mod:`.models` — the pow2 table builders and ``FreqTable``;
+* :mod:`.models` — the pow2 tables, the table helpers
+  (``counts_from_data``, ``cumulative``, ``find_index``,
+  ``decode_lut``, ``ideal_bits``, ``TableArrays``) and ``FreqTable``;
 * the scalar streaming API of the reference (``RangeCoder``,
   ``Encoder``, ``Decoder``, ``PModel``, ``FreqTable``): pure Python, no
   device;
@@ -31,9 +33,12 @@ coder).
   use), the CPU conformance and throughput anchor;
 * :mod:`.utils` — profiler regions and traces, compression metrics;
 * ``python -m range_coder_rust_tpu_torch`` — the command line
-  (:mod:`.__main__`: encode, decode, inspect, selftest; ``--device``).
+  (:mod:`.__main__`: encode, decode, inspect, bench, selftest;
+  ``--device``), and :mod:`.bench`, the throughput benchmark behind
+  ``bench``.
 
-:mod:`.parallel` and :mod:`.native` are imported on demand.
+:mod:`.parallel`, :mod:`.native` and :mod:`.bench` are imported on
+demand.
 """
 
 from . import api, errors

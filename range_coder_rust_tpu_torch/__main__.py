@@ -1,15 +1,17 @@
 """Command-line interface: ``python -m range_coder_rust_tpu_torch <cmd>``.
 
 The port's counterpart of ``python -m range_coder_rust_tpu``: the same
-commands, options, outputs and containers, plus ``--device`` on encode
-and decode (default ``cuda``; ``cpu`` on request; nothing falls back to
-the CPU on its own).
+commands, options, outputs and containers, plus ``--device`` on encode,
+decode and bench (default ``cuda``; ``cpu`` on request; nothing falls
+back to the CPU on its own).  ``bench`` runs the port's own benchmark
+(:mod:`.bench`), not the JAX package's ``bench.py``.
 
 Commands:
   encode   FILE -o OUT [--profile rans16|planar] [--k K] [--block-len L]
            [--adaptive] [--raw-total] [--no-checksums] [--device D]
   decode   FILE -o OUT [--no-verify] [--start S --count N] [--device D]
   inspect  FILE              # print container header/geometry/ratios
+  bench    [--mb N] [--k K] [--device D]  # throughput, one JSON line
   selftest                   # reference-parity round-trip (sample_impl)
 """
 
@@ -138,6 +140,17 @@ def _cmd_inspect(args) -> int:
     return 0
 
 
+def _cmd_bench(args) -> int:
+    import os
+
+    from . import bench
+
+    os.environ["RC_BENCH_MB"] = str(args.mb)
+    os.environ["RC_BENCH_K"] = str(args.k)
+    bench.run(n_bytes=args.mb << 20, device=args.device)
+    return 0
+
+
 def _cmd_selftest(args) -> int:
     """The reference's acceptance test (examples/sample_impl.rs:72-128)."""
     from .core.decoder import Decoder
@@ -213,6 +226,14 @@ def main(argv=None) -> int:
     pi = sub.add_parser("inspect", help="print container metadata")
     pi.add_argument("file")
     pi.set_defaults(fn=_cmd_inspect)
+
+    pb = sub.add_parser("bench", help="run the throughput benchmark")
+    pb.add_argument("--mb", type=int, default=64)
+    pb.add_argument("--k", type=int, default=16)
+    pb.add_argument("--device", default="cuda",
+                    help="where the coder runs (default cuda; cpu runs the "
+                         "plain PyTorch versions)")
+    pb.set_defaults(fn=_cmd_bench)
 
     ps = sub.add_parser("selftest", help="reference-parity round trip")
     ps.set_defaults(fn=_cmd_selftest)

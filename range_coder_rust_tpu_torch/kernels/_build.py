@@ -80,13 +80,18 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def library_path() -> Path:
+    """Where the library of the current sources and flags lives."""
+    return _BUILD_ROOT / source_hash() / "librc_kernels.so"
+
+
 def build() -> Path:
     """Compile the library if its source hash has no build yet; returns
     the path of the ``.so``.  A failed build raises with nvcc's stderr."""
-    out_dir = _BUILD_ROOT / source_hash()
-    lib = out_dir / "librc_kernels.so"
+    lib = library_path()
     if lib.exists():
         return lib
+    out_dir = lib.parent
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]

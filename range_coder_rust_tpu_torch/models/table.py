@@ -1,9 +1,13 @@
 """Pow2 frequency tables.
 
 The counterpart of ``range_coder_rust_tpu/models/table.py``
-(``normalize_pow2``, ``Pow2Table``, ``build_table_pow2``,
-``table_from_data_pow2``).  That module cannot be imported without its
-array framework, so the port keeps its own copy.  The reference has a
+(``TableArrays``, ``counts_from_data``, ``cumulative``, ``find_index``,
+``decode_lut``, ``ideal_bits``, ``normalize_pow2``, ``Pow2Table``,
+``build_table_pow2``, ``table_from_data_pow2``).  That module cannot be
+imported without its array framework, so the port keeps its own copy.
+The tensor helpers run on the device of their inputs and return the
+reference's values: u32 counts and sums as int64, symbol indices as
+int32.  The reference has a
 host and a device apportionment; the port has one, :func:`normalize_pow2`,
 batched over rows: it builds the host tables (one row on the CPU) and the
 planar per-block tables (one row a block, on their device).
@@ -19,6 +23,56 @@ import numpy as np
 import torch
 
 from ..errors import TableError
+
+_MASK32 = 0xFFFFFFFF
+
+
+class TableArrays(NamedTuple):
+    """A table as tensors: ``c (A,)`` frequencies and ``cum (A+1,)``
+    exclusive prefix sums with ``cum[A] == total``."""
+
+    c: torch.Tensor
+    cum: torch.Tensor
+
+
+def counts_from_data(data: torch.Tensor, alphabet: int) -> torch.Tensor:
+    """Histogram of symbol occurrences (the vectorized
+    ``add_alphabet_freq``, reference examples/sample_impl.rs:58-60):
+    ``(alphabet,)`` int64.  Symbols at or above ``alphabet`` are dropped,
+    as the reference's scatter drops them."""
+    counts = torch.bincount(data.reshape(-1).long(), minlength=alphabet)
+    return counts[:alphabet] & _MASK32
+
+
+def cumulative(counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive prefix sum with the total appended (``calc_cum``,
+    reference examples/sample_impl.rs:61-69): ``(A+1,)`` int64 holding
+    the reference's u32 sums."""
+    csum = (counts.long() & _MASK32).cumsum(0) & _MASK32
+    return torch.cat([csum.new_zeros(1), csum])
+
+
+def find_index(cum: torch.Tensor, rfreq: torch.Tensor) -> torch.Tensor:
+    """Largest ``i`` with ``cum[i] <= rfreq``: the reference's binary
+    search (examples/sample_impl.rs:33-44) as a vectorized searchsorted,
+    int32.  ``rfreq`` must be below the total (``cum[-1]``)."""
+    return torch.searchsorted(cum[1:].long().contiguous(), rfreq.long(),
+                              right=True).to(torch.int32)
+
+
+def decode_lut(cum: torch.Tensor, k: int) -> torch.Tensor:
+    """The ``2**k`` rfreq -> symbol table of a pow2-total table: the
+    decoder's search as one gather.  int32."""
+    return find_index(cum, torch.arange(1 << k, device=cum.device))
+
+
+def ideal_bits(c: torch.Tensor, total: int) -> torch.Tensor:
+    """Per-symbol Shannon bound ``log2(total / c)`` (the vectorized
+    ``ideal_code_length``, reference src/pmodel.rs:14-40): float32, inf
+    for zero-frequency symbols (undefined there, src/pmodel.rs:16-18)."""
+    bits = (torch.log2(torch.tensor(float(total), device=c.device))
+            - torch.log2(c.to(torch.float32)))
+    return torch.where(c > 0, bits, torch.inf)
 
 
 def normalize_pow2(counts: torch.Tensor, k: int) -> torch.Tensor:

@@ -308,9 +308,11 @@ def _batch_tables(cums: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     return cums if cums.dim() == 1 else cums[start:stop]
 
 
-def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
-                  block_len: int, g: int, device) -> np.ndarray:
-    """Parse, upload and decode one batch of group payloads."""
+def _upload_payloads(payloads: List[bytes], block_len: int, g: int,
+                     device) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Parse one batch of group payloads and upload what the decode
+    kernel reads: ``(states, region, grp_off)`` on ``device``."""
     with annotate("rans16.parse", device):
         parsed = [_parse_payload(p, block_len, g) for p in payloads]
         NT = parsed[0][0].shape[0]
@@ -324,10 +326,18 @@ def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
         grp_off = torch.from_numpy(np.concatenate(
             [[0], np.cumsum(group_hw)]).astype(np.int64)).to(device)
         region_dev = torch.from_numpy(region.copy()).to(device)
+    return states, region_dev, grp_off
+
+
+def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
+                  block_len: int, g: int, device) -> np.ndarray:
+    """Parse, upload and decode one batch of group payloads."""
+    states, region, grp_off = _upload_payloads(payloads, block_len, g,
+                                               device)
     out_np = _np_dtype(a_count)
     with annotate("rans16.decode_kernel", device):
         sym = rans_decode_tiled(
-            states, region_dev, grp_off, cum, group_lanes=g,
+            states, region, grp_off, cum, group_lanes=g,
             block_len=block_len, a_count=a_count,
             out_dtype=_TORCH_OUT[out_np])
     with annotate("rans16.d2h", device):

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: it imports, and codes (rans16, planar,
-planar per-block tables, the scalar coder, the CLI, the golden coder and
-the scale-out modules), with jax and the JAX package blocked, and its own
-copies of the JAX package's ``errors`` and ``format`` match the
-originals."""
+planar per-block tables, the scalar coder, the CLI, the golden coder, the
+bench and the scale-out modules), with jax and the JAX package blocked,
+and its own copies of the JAX package's ``errors`` and ``format`` match
+the originals."""
 
 import inspect
 import re
@@ -77,7 +77,13 @@ with contextlib.redirect_stdout(said), tempfile.TemporaryDirectory() as tmp:
                  "--group-lanes", "128", "--device", "cpu"]) == 0
     assert main(["decode", rc, "-o", back, "--device", "cpu"]) == 0
     assert open(back, "rb").read() == data.tobytes()
+    os.environ["RC_BENCH_REPS"] = "1"
+    os.environ["RC_BENCH_PROFILE"] = "rans16"
+    assert main(["bench", "--mb", "1", "--device", "cpu"]) == 0
 assert said.getvalue().startswith("selftest passed")
+import json
+line = json.loads(said.getvalue().strip().splitlines()[-1])
+assert line["device"] == "cpu" and line["corpus_mb"] == 1, line
 tab = (table.counts(), table.cum_counts(), table.total_freq())
 code = golden.encode(data[:50], *tab)
 assert rt.Decoder(code).decode(table) == data[0]
