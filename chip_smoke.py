@@ -15,7 +15,13 @@ Phases (any failure ends the run with a non-zero exit):
    by chunks or (L not a multiple of 16 bytes) symbol by symbol, and the
    decode's staged u16 stores with a ragged last stage, its direct-store
    variant (u8 and u16 symbols), the widest groups (32768 lanes) and its
-   ring read past its window;
+   ring read past its window; then the planar kernels over
+   ``testing.PLANAR_CASES``: k = 16 with a shared table on u8 rows at
+   L = 512, a 4096-symbol u16 alphabet, a 65536-symbol one (its table in
+   device memory), a raw total, a total of 1, per-block tables at k = 12,
+   a forced capacity overflow, an odd L with byte stores, and a decode row
+   width that is not a multiple of 4, each encode also on int32 and int64
+   rows (code bytes, lengths and symbols identical);
 4. the main path at full size: ``api.encode`` / ``api.decode`` of a 256 MB
    Zipf(1.2) byte corpus with ``CodecConfig(profile="rans16",
    block_len=32768)`` (4 groups of 2048 lanes), an exact round trip, and
@@ -46,18 +52,23 @@ Phases (any failure ends the run with a non-zero exit):
    the main path's corpus in slabs of 2^27 symbols: byte-equal to the
    single call's container;
 9. the planar profile (``CodecConfig()``'s default: k = 16, L = 512,
-   device calls of 2^24 symbols; PyTorch ops on the card, no kernel of
-   its own) on the main path's corpus: an exact int32 round trip, its
-   bits/sym, walls and wall per step of the block loops, about 64
-   sampled blocks and the last one byte-equal to the port's scalar
-   ``Encoder``, the first 1024 blocks encoded again on the CPU
-   (byte-equal), and five ``decode_range`` slices;
+   device calls of 2^24 symbols; the planar encode and decode kernels,
+   one launch of each a device call) on the main path's corpus: an exact
+   int32 round trip at the reference's 5.53008 bits/sym (256 MiB), its
+   walls, about 64 sampled blocks and the last one byte-equal to the
+   port's scalar ``Encoder``, the first 1024 blocks encoded again on the
+   CPU (byte-equal), and five ``decode_range`` slices; then ("9 planar
+   loops") the first device call's blocks through each planar kernel and
+   its plain version on the card: the payloads byte-equal to the
+   container's, the decode equal to the rows, each kernel's time (CUDA
+   events) beside the plain version's and its bound, and the device
+   kernels and busy share of one kernel round trip (``torch.profiler``);
 10. the other planar paths, one device call (16 MiB) each: raw-count
    tables (total 2^24, where the reference switches its decode divide),
    a 4096-symbol alphabet under a rans16 config (the planar fallback),
    and per-block tables (``adaptive.encode_adaptive``, k = 12, L = 512,
    on the adaptive path's mixed corpus); each exact, sampled blocks
-   against the scalar coder;
+   against the scalar coder, through the planar kernels;
 11. the sharded rans16 path: the main path's rows, tables and decode
    inputs through ``parallel.make_sharded_rans16`` over two shards on the
    card (``[cuda:0, cuda:0]``; one below 128 MiB, where the main path is
@@ -69,7 +80,8 @@ Phases (any failure ends the run with a non-zero exit):
    with ``encode_multihost_rans16``, two groups a rank; rank 0's
    container byte-equal to phase 4's, and ``decode_multihost_rans16``
    exact on every rank; then its first 16 MiB with the planar
-   ``encode_multihost``, byte-equal to ``api.encode(..., CodecConfig())``.
+   ``encode_multihost`` (the planar encode kernel on each rank),
+   byte-equal to ``api.encode(..., CodecConfig())``.
    Each rank's wall split into coding, gather and assembly; a rank that
    fails or hangs (a time limit) fails the run;
 13. the command line, as subprocesses with ``--device cuda`` on the main
@@ -85,8 +97,8 @@ Phases (any failure ends the run with a non-zero exit):
    (``BENCH_256MB_r05.json``).
 
 Each path resets the launch counts just before it runs and reads them
-just after (the planar paths launch no rans16 kernel; the CLI and the
-bench run in processes of their own).  Each phase's wall
+just after (the planar paths launch the planar kernels and no rans16
+kernel; the CLI and the bench run in processes of their own).  Each phase's wall
 is printed.  It prints one JSON line on the kernels (the main path's
 numbers under the contract's keys, the other paths' under added keys),
 then, as its last line, ``{"ok": true, "device": {...}}``.  It imports
@@ -107,13 +119,19 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "range_coder_rust_tpu_torch"
+#: the TPU kernel (rans16) or the XLA scan (planar: the reference has no
+#: Pallas kernel there) each kernel replaces
 REPLACES = {
     "rans_encode": "range_coder_rust_tpu/kernels/rans_encode.py:175",
     "rans_decode": "range_coder_rust_tpu/kernels/rans_decode.py:75",
+    "planar_encode": "range_coder_rust_tpu/blocks.py:69",
+    "planar_decode": "range_coder_rust_tpu/blocks.py:319",
 }
 SOURCES = {
     "rans_encode": f"{PKG}/csrc/rans_encode.cu",
     "rans_decode": f"{PKG}/csrc/rans_decode.cu",
+    "planar_encode": f"{PKG}/csrc/planar_encode.cu",
+    "planar_decode": f"{PKG}/csrc/planar_decode.cu",
 }
 #: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and 32-bit
 #: integer operations/s: 64 INT32 lanes a SM (NVIDIA's Hopper architecture
@@ -127,6 +145,18 @@ PEAK_OPS_PER_S = 132 * 64 * 1.98e9
 #: refilled halfword (shift and or)
 OPS_PER_SYMBOL = {"rans_encode": 6, "rans_decode": 6}
 OPS_PER_HALFWORD = 2
+#: the planar kernels' operations per symbol, each u64 operation counted
+#: as one (csrc/planar_step.cuh): the encode's symbol and table reads (3),
+#: rpt = range >> k (1), the interval (2 multiplies, 2 adds), the
+#: renormalisation (xor, 2 leading-zero counts, 2 clamps, 5 shifts, a
+#: compare, 2 nots, a mask, 2 selects, an add: 18) = 26; the decode adds
+#: the target value (subtract, divide counted as one, clamp: 3) and the
+#: symbol write (1), and reads no symbol (-1) = 29, plus 4 a step of the
+#: binary search (add, table read, compare, select) over log2(A + 1)
+#: steps; per emitted or consumed byte 3 (shift, or, byte read or store)
+PLANAR_OPS_PER_SYMBOL = {"planar_encode": 26, "planar_decode": 29}
+PLANAR_OPS_PER_SEARCH_STEP = 4
+PLANAR_OPS_PER_BYTE = 3
 
 
 def symbol_bytes(a_count: int) -> int:
@@ -138,6 +168,21 @@ def bound(name: str, nbytes: int, n_symbols: int, n_halfwords: int) -> tuple:
     """(bound ms, "bytes" or "operations"): the least time the card could
     take for a kernel's work, moving ``nbytes`` in all."""
     ops = OPS_PER_SYMBOL[name] * n_symbols + OPS_PER_HALFWORD * n_halfwords
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def planar_bound(name: str, nbytes: int, n_symbols: int, n_code_bytes: int,
+                 a_count: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of a planar kernel's work: it
+    moves ``nbytes`` in all and codes ``n_symbols`` into (or from)
+    ``n_code_bytes`` stream bytes over an alphabet of ``a_count``."""
+    ops = PLANAR_OPS_PER_SYMBOL[name] * n_symbols + (
+        PLANAR_OPS_PER_BYTE * n_code_bytes)
+    if name == "planar_decode":
+        ops += (PLANAR_OPS_PER_SEARCH_STEP * n_symbols
+                * max(1, (a_count).bit_length()))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -187,7 +232,8 @@ def check_kernels(smoke: Smoke) -> dict:
 
     from range_coder_rust_tpu_torch import testing
 
-    err = {"rans_encode": 0, "rans_decode": 0}
+    err = {"rans_encode": 0, "rans_decode": 0, "planar_encode": 0,
+           "planar_decode": 0}
     for name in testing.KERNEL_CASES:
         rows, g, a = testing.kernel_case(name)
         errs, _, _ = testing.kernels_vs_plain(
@@ -199,6 +245,18 @@ def check_kernels(smoke: Smoke) -> dict:
             err[k] = max(err[k], e)
         smoke.say(f"kernel == plain: {name} (G={g} rows={rows.shape[0]} "
                   f"L={rows.shape[1]} A={a})")
+    for name in testing.PLANAR_CASES:
+        errs = testing.planar_vs_plain(name, torch.device("cuda"))
+        torch.cuda.synchronize()
+        if any(errs.values()):
+            raise AssertionError(f"{name}: kernel != plain version: {errs}")
+        case = testing.planar_case(name)
+        smoke.say(f"planar kernels == plain: {name} (B, L = "
+                  f"{case['rows'].shape}, {case['rows'].dtype}, A="
+                  f"{case['c'].shape[-1]}, {case['total']}, "
+                  f"{'per-block' if case['c'].ndim == 2 else 'shared'} "
+                  f"table, capacity {case['capacity']}, decode width "
+                  f"{case['width'] or case['capacity']})")
     return err
 
 
@@ -376,7 +434,8 @@ def main_path_vs_plain(smoke: Smoke, main: dict) -> dict:
 def round_trip(smoke: Smoke, what: str, data, cfg) -> dict:
     """One api encode and decode on the card, each kernel call recorded:
     the container, both walls, the launch counts and the calls.  Fails
-    unless the round trip is exact and each kernel ran."""
+    unless the round trip is exact and each rans16 kernel ran (and no
+    planar one)."""
     import numpy as np
     import torch
 
@@ -397,8 +456,10 @@ def round_trip(smoke: Smoke, what: str, data, cfg) -> dict:
     if out.dtype != data.dtype or not np.array_equal(out, data):
         raise AssertionError(f"{what}: round trip is not exact "
                              f"({out.dtype} {out.shape})")
-    if min(counts.values()) < 1:
-        raise AssertionError(f"{what}: a kernel never launched: {counts}")
+    if (min(counts["rans_encode"], counts["rans_decode"]) < 1
+            or counts["planar_encode"] or counts["planar_decode"]):
+        raise AssertionError(f"{what}: a rans16 kernel never launched, or "
+                             f"a planar one did: {counts}")
     n = data.size
     smoke.say(f"{what}: round trip exact, encode wall {t_enc:.4f} s = "
               f"{n / t_enc / 1e9:.4f} GB/s, decode wall {t_dec:.4f} s = "
@@ -609,10 +670,12 @@ def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
     """Encode with ``encode(device)`` and decode with ``api.decode`` on
     ``device``, the launch counts reset before and read after: exact
     round trip (int32), walls, bits/sym, sampled blocks against the
-    scalar coder, and the wall per step of the block loops (each device
+    scalar coder, and the wall per step of the block coder (each device
     call of ``chunk_symbols`` symbols runs L + 1 encode steps and L decode
-    steps)."""
+    steps).  On a card each device call launches each planar kernel once
+    (the encode again for a capacity retry) and no rans16 kernel."""
     import numpy as np
+    import torch
 
     import range_coder_rust_tpu_torch as rt
     from range_coder_rust_tpu_torch import api, format as fmt
@@ -621,14 +684,19 @@ def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
     blob, t_enc = timed(lambda: encode(device), device)
     out, t_dec = timed(lambda: rt.decode(blob, device=device), device)
     counts = rt.launch_counts()
-    if any(counts.values()):
-        raise AssertionError(f"{what}: launched a rans16 kernel: {counts}")
     if out.dtype != np.int32 or not np.array_equal(out, data):
         raise AssertionError(f"{what}: round trip is not exact")
     cont = fmt.unpack(blob)
-    checked = check_sampled_blocks(what, data, cont)
     n, L = data.size, cont.block_len
     calls = -(-cont.n_blocks // max(1, api._CHUNK_SYMBOLS // L))
+    on_card = torch.device(device).type == "cuda"
+    if (counts["rans_encode"] or counts["rans_decode"]
+            or counts["planar_decode"] != (calls if on_card else 0)
+            or not (counts["planar_encode"] >= calls if on_card
+                    else counts["planar_encode"] == 0)):
+        raise AssertionError(f"{what}: {calls} device calls, launches "
+                             f"{counts}")
+    checked = check_sampled_blocks(what, data, cont)
     res = {"blob": blob, "cont": cont, "enc_s": t_enc, "dec_s": t_dec,
            "bits": 8 * len(blob) / max(n, 1),
            "enc_step_ms": t_enc / (calls * (L + 1)) * 1e3,
@@ -641,15 +709,16 @@ def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
               f"({res['dec_step_ms']:.4f} ms of wall a step), container "
               f"{len(blob)} "
               f"B = {res['bits']:.5f} bits/sym, {checked} sampled blocks == "
-              f"the scalar coder's, rans16 launches {counts}")
+              f"the scalar coder's, launches {counts}")
     return res
 
 
 def planar_path(smoke, data, device="cuda") -> dict:
     """Phase 9: the planar profile, ``CodecConfig()``'s default (k = 16,
     L = 512, device calls of 2^24 symbols), on the main path's corpus:
-    the round trip, the first 1024 blocks encoded again on the CPU
-    (byte-equal payloads), and five ``decode_range`` slices."""
+    the round trip through the planar kernels (5.53008 bits/sym at
+    256 MiB), the first 1024 blocks encoded again on the CPU (byte-equal
+    payloads), and five ``decode_range`` slices."""
     import numpy as np
 
     import range_coder_rust_tpu_torch as rt
@@ -676,6 +745,9 @@ def planar_path(smoke, data, device="cuda") -> dict:
               "two_blocks": (1000 * L - 7, 4096),
               "call_boundary": (max(0, min(chunk, n) - 2048), 4096),
               "last": (n - 4096, 4096)}
+    if n == 256 << 20 and round(res["bits"], 5) != 5.53008:
+        raise AssertionError(f"planar path: {res['bits']:.5f} bits/sym, the "
+                             "reference's record for this corpus is 5.53008")
     range_ms = {}
     for name, (start, count) in ranges.items():
         count = min(count, n - start)
@@ -691,66 +763,99 @@ def planar_path(smoke, data, device="cuda") -> dict:
     return res
 
 
-def planar_loops(smoke, data, device="cuda") -> dict:
-    """The planar block loops alone, on the first device call's blocks
-    (2^24 symbols of ``data``, k = 16, L = 512), synchronised: ms per step
-    of the encode scan (L + 1 transitions) and of the decode (L), the
-    compaction's ms, and from ``torch.profiler`` over 64 steps of each,
-    the device kernels launched a step and the device's busy share (the
-    kernels' summed device time over the profiled wall)."""
+def planar_kernels(smoke, data, cont, device="cuda") -> dict:
+    """Phase 9's second half: phase 9's first device call (the first
+    2^24 symbols of ``data``: 32768 blocks of 512, the container's table,
+    k = 16) through each planar kernel and its plain version on the card.
+    The kernel's payloads must be the container's and the plain version's
+    bytes, and the decode of the container's code matrix (as
+    ``api.decode`` builds it) the rows, both ways.  Returns each kernel's
+    ms (CUDA events, mean of 3 after a warm-up) beside the plain
+    version's (host clock, one run) and its bound, the largest
+    differences, and the device kernels and busy share of one kernel
+    round trip (``torch.profiler``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from range_coder_rust_tpu_torch import blocks
-    from range_coder_rust_tpu_torch.models.table import build_table_pow2
+    from range_coder_rust_tpu_torch import api, blocks, kernels, testing
 
-    L, k = 512, 16
-    nb = min(data.size, 1 << 24) // L
-    host = data[: nb * L].reshape(nb, L)
-    t = build_table_pow2(np.bincount(host.reshape(-1), minlength=256), k)
-    c = torch.from_numpy(t.c.astype(np.int64)).to(device)
-    cum = torch.from_numpy(t.cum.astype(np.int64)).to(device)
-    rows = blocks.upload_rows(host, device)
-    (emit, en, pos, lengths), t_scan = timed(
-        lambda: blocks.encode_scan(rows, c, cum, k=k), device)
-    cap = blocks.default_capacity(L, k)
-    code, t_comp = timed(lambda: blocks.compact_emissions(
-        emit, en, pos, capacity=cap), device)
-    dec, t_dec = timed(lambda: blocks.decode_blocks(
-        code, c, cum, k=k, block_len=L), device)
-    if not torch.equal(dec.long(), rows):
-        raise AssertionError("planar loops: decode != the rows")
-    res = {"enc_step_ms": t_scan / (L + 1) * 1e3,
-           "dec_step_ms": t_dec / L * 1e3, "compact_ms": t_comp * 1e3}
-    steps = 64
-    part = rows[:, :steps].contiguous()
-    code_part = blocks.encode_blocks(part, c, cum, k=k,
-                                     capacity=cap)[0]
-    for name, fn in (("encode", lambda: blocks.encode_scan(part, c, cum, k=k)),
-                     ("decode", lambda: blocks.decode_blocks(
-                         code_part, c, cum, k=k, block_len=steps))):
-        fn()
-        sync(device)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = timed(fn, device)
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-        res[f"{name}_kernels_a_step"] = len(kernels) / steps
-        res[f"{name}_busy_share"] = (busy_us / (wall * 1e6)
-                                     if kernels else None)
-    smoke.say(
-        f"planar loops, {nb} blocks x {L} on {device}: encode scan "
-        f"{t_scan:.4f} s = {res['enc_step_ms']:.4f} ms a step, compaction "
-        f"{res['compact_ms']:.4f} ms, decode {t_dec:.4f} s = "
-        f"{res['dec_step_ms']:.4f} ms a step; over {steps} steps "
-        f"(torch.profiler): encode {res['encode_kernels_a_step']:.2f} "
-        f"kernels a step, busy share {res['encode_busy_share']}, decode "
-        f"{res['decode_kernels_a_step']:.2f} kernels a step, busy share "
-        f"{res['decode_busy_share']} (None: the trace held no device "
-        f"time, not measured)")
+    L, k = cont.block_len, cont.k
+    nb = min(data.size, api._CHUNK_SYMBOLS) // L
+    rows = blocks.upload_rows(data[: nb * L].reshape(nb, L), device)
+    c_np = np.asarray(cont.tables_c, np.int64)
+    c = torch.from_numpy(c_np).to(device)
+    cum = torch.from_numpy(np.concatenate([[0], np.cumsum(c_np)])).to(device)
+    enc_kw = dict(k=k, capacity=blocks.default_capacity(L, k))
+    code_k, len_k = kernels.planar_encode_blocks(rows, c, cum, **enc_kw)
+    (code_p, len_p), enc_plain_ms = plain_wall(
+        lambda: kernels.planar_encode_plain(rows, c, cum, **enc_kw))
+    lens = len_k.cpu().numpy()
+    err = {"planar_encode": max(testing._max_abs(code_k, code_p),
+                                testing._max_abs(len_k, len_p))}
+    if (err["planar_encode"]
+            or api._payloads(code_k.cpu().numpy(), lens)
+            != cont.payloads[:nb]):
+        raise AssertionError(f"planar encode kernel: {err}, or its payloads "
+                             "differ from the container's")
+    width = -(-max(int(cont.lengths.max()), 8) // 1024) * 1024
+    code = torch.from_numpy(api._payload_matrix(cont, 0, nb, width)).to(
+        device)
+    dec_kw = dict(k=k, block_len=L)
+    dec_k = kernels.planar_decode_blocks(code, c, cum, **dec_kw)
+    dec_p, dec_plain_ms = plain_wall(
+        lambda: kernels.planar_decode_plain(code, c, cum, **dec_kw))
+    err["planar_decode"] = testing._max_abs(dec_k, dec_p)
+    if err["planar_decode"] or not torch.equal(dec_k, rows.to(torch.int32)):
+        raise AssertionError(f"planar decode kernel: {err}, or not the rows")
+    smoke.say(f"planar kernels on the first device call ({nb} blocks x {L}, "
+              f"code rows of {width} B): payloads == the container's == the "
+              f"plain version's, decode == the rows == the plain version's")
+    times = {
+        "planar_encode": (cuda_ms(lambda: kernels.planar_encode_blocks(
+            rows, c, cum, **enc_kw)), enc_plain_ms),
+        "planar_decode": (cuda_ms(lambda: kernels.planar_decode_blocks(
+            code, c, cum, **dec_kw)), dec_plain_ms),
+    }
+    # what the data needs: the symbols at their width and the table in,
+    # the payload bytes and lengths out (the encode); the payload bytes
+    # and the table in, the int32 symbols out (the decode)
+    payload, tables, a = int(lens.sum()), nbytes(c, cum), c.numel()
+    bounds = {
+        "planar_encode": planar_bound(
+            "planar_encode", nbytes(rows, len_k) + tables + payload,
+            rows.numel(), payload, a),
+        "planar_decode": planar_bound(
+            "planar_decode", payload + tables + nbytes(dec_k), rows.numel(),
+            payload, a),
+    }
+    for name, (k_ms, p_ms) in times.items():
+        b_ms, b_by = bounds[name]
+        smoke.say(f"{name} first device call B={nb} L={L} A={a}: kernel "
+                  f"{k_ms:.4f} ms ({k_ms / L * 1e6:.2f} ns a step), plain "
+                  f"PyTorch on the card {p_ms:.4f} ms, bound {b_ms:.6f} ms "
+                  f"({b_by})")
+
+    def round_trip():
+        kernels.planar_encode_blocks(rows, c, cum, **enc_kw)
+        kernels.planar_decode_blocks(code, c, cum, **dec_kw)
+
+    round_trip()
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(round_trip, device)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    res = {"times": times, "bounds": bounds, "err": err,
+           "device_kernels": sorted({e.name[:60] for e in events}),
+           "device_events": len(events),
+           "busy_share": busy_us / (wall * 1e6) if events else None}
+    smoke.say(f"planar kernel round trip under torch.profiler: "
+              f"{res['device_events']} device events {res['device_kernels']},"
+              f" busy share {res['busy_share']} of {wall * 1e3:.4f} ms "
+              f"(None would mean: the trace held no device time)")
     return res
 
 
@@ -821,7 +926,9 @@ def sharded_path(smoke, main: dict, device="cuda") -> dict:
             or not torch.equal(sym, dec_k)):
         raise AssertionError("sharded rans16 != the single calls")
     if device == "cuda" and counts != {"rans_encode": shards,
-                                       "rans_decode": shards}:
+                                       "rans_decode": shards,
+                                       "planar_encode": 0,
+                                       "planar_decode": 0}:
         raise AssertionError(f"sharded rans16 launches {counts}")
     smoke.say(f"sharded rans16 over {shards} shards on {device}: encode "
               f"{enc_s * 1e3:.4f} ms, decode {dec_s * 1e3:.4f} ms (host "
@@ -918,8 +1025,11 @@ def rank_main(rank: int, port: int, world: int, tmp: str, job: dict) -> None:
             rows, c, cum, k=16, n_blocks=n // Lp, device=dev), dev)
     res["planar"] = {"coding_s": wall - gather.seconds,
                      "gather_s": gather.seconds}
-    if any(rt.launch_counts().values()):
-        raise AssertionError(f"planar multihost launched {rt.launch_counts()}")
+    res["planar_launches"] = launched = rt.launch_counts()
+    if (launched["rans_encode"] or launched["rans_decode"]
+            or launched["planar_decode"]
+            or launched["planar_encode"] < (dev.startswith("cuda"))):
+        raise AssertionError(f"planar multihost launched {launched}")
     if rank == 0:
         blob, res["planar"]["assembly_s"] = timed(
             lambda: mh.assemble_container(
@@ -1001,7 +1111,9 @@ def multihost_path(smoke, main: dict, tmp: str, device="cuda",
                 + (f", decode of its groups {x['decode_s']:.4f} s"
                    if "decode_s" in x else ""))
         smoke.say(f"multihost rank {r['rank']}: start to first coding "
-                  f"{r['setup_s']:.4f} s, rans16 launches {r['launches']}")
+                  f"{r['setup_s']:.4f} s, rans16 leg launches "
+                  f"{r['launches']}, planar leg launches "
+                  f"{r['planar_launches']}")
     smoke.say(f"multihost: one process coding all {cont.n_blocks} rans16 "
               f"groups (rans_codec.encode_groups): {one_s:.4f} s")
     smoke.say(f"multihost: 2 ranks ({wall:.4f} s in all, spawn included): "
@@ -1010,8 +1122,10 @@ def multihost_path(smoke, main: dict, tmp: str, device="cuda",
               f"symbols byte-equal to api.encode's ({len(planar_blob)} B, "
               f"api encode {planar_s:.4f} s)")
     return {"ranks": ranks, "wall_s": wall, "one_process_s": one_s,
-            "launches": {k: [r["launches"][k] for r in ranks]
-                         for k in ("rans_encode", "rans_decode")}}
+            "launches": {k: [r["launches" if k.startswith("rans")
+                                else "planar_launches"][k] for r in ranks]
+                         for k in ("rans_encode", "rans_decode",
+                                   "planar_encode", "planar_decode")}}
 
 
 def cli_path(smoke, main: dict, tmp: str, device="cuda") -> dict:
@@ -1181,7 +1295,8 @@ def main() -> int:
     from range_coder_rust_tpu_torch import testing
 
     planar = phase("9 planar", planar_path, main["data"])
-    planar["loops"] = phase("9 planar loops", planar_loops, main["data"])
+    planar["kernels"] = phase("9 planar loops", planar_kernels, main["data"],
+                              planar["cont"])
     mixed = testing.mixed_corpus(
         min(main["data"].size, 1 << 24)).astype(np.uint8)
     other = phase("10 other planar", planar_other_paths, main["data"], mixed)
@@ -1195,9 +1310,12 @@ def main() -> int:
         name: {k: r[k] for k in ("enc_s", "dec_s", "bits", "enc_step_ms",
                                  "dec_step_ms")}
         for name, r in {"main": planar, **other}.items()}
-        | {"loops": planar["loops"]}))
-    for name in err:
+        | {"kernels": {k: planar["kernels"][k] for k in (
+            "times", "bounds", "device_events", "busy_share")}}))
+    for name in ("rans_encode", "rans_decode"):
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
+    for name in ("planar_encode", "planar_decode"):
+        err[name] = max(err[name], planar["kernels"]["err"][name])
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "range_coder_rust_tpu"))
@@ -1221,7 +1339,19 @@ def main() -> int:
             if name == "rans_encode" else {"range_ms": ra["range_ms"]}),
          "sharded_launches": sharded["counts"][name],
          "multihost_launches": multi["launches"][name]}
-        for name in ("rans_encode", "rans_decode")]}
+        for name in ("rans_encode", "rans_decode")] + [
+        {"name": name, "route": "cuda", "source": SOURCES[name],
+         "replaces": REPLACES[name], "launches": planar["counts"][name],
+         "max_abs_err": err[name],
+         "ms": planar["kernels"]["times"][name][0],
+         "plain_ms": planar["kernels"]["times"][name][1],
+         "bound_ms": planar["kernels"]["bounds"][name][0],
+         "bound_by": planar["kernels"]["bounds"][name][1],
+         "library_ms": None,
+         "other_paths_launches": {p: r["counts"][name]
+                                  for p, r in other.items()},
+         "multihost_launches": multi["launches"][name]}
+        for name in ("planar_encode", "planar_decode")]}
     smoke.say("CLI walls (s): " + json.dumps(cli))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,13 @@ coder).
 
 * :mod:`.api` — ``CodecConfig``, ``encode``, ``decode``, ``decode_range``,
   ``decode_bytes``;
-* :mod:`.rans_codec` — host orchestration of the rans16 profile, and
-  :mod:`.kernels`, its CUDA kernels' wrappers, their plain PyTorch
-  versions and their launch counts;
+* :mod:`.rans_codec` — host orchestration of the rans16 profile;
+* :mod:`.kernels` — the CUDA kernels' wrappers (rans16's encode and
+  decode, the planar block coder's encode and decode), their plain
+  PyTorch versions and their launch counts;
 * :mod:`.blocks`, :mod:`.adaptive`, :mod:`.ops` — the planar profile:
-  block-parallel coding as PyTorch ops, with shared, raw-count or
-  per-block tables;
+  block-parallel coding with shared, raw-count or per-block tables (the
+  planar kernels on a card; the plain versions' u64 ops in :mod:`.ops`);
 * :mod:`.format`, :mod:`.errors` — the container format and the typed
   errors (same bytes, same class names as the reference);
 * :mod:`.models` — the pow2 tables, the table helpers

@@ -6,8 +6,9 @@ its own table fitted to its contents:
   pass 1: per-block histograms (one ``bincount`` over ``block * A +
           symbol``) and the batched pow2 normalization
           (:func:`.models.table.normalize_pow2`);
-  pass 2: the planar encode scan with one table row per block
-          (:func:`.blocks.encode_scan` takes ``(B, A)`` tables).
+  pass 2: the planar block coder with one table row per block
+          (:func:`.blocks.encode_blocks` takes ``(B, A)`` tables; the
+          planar kernels on a card).
 
 The container stores one table per block (FLAG_PER_BLOCK_TABLES), so any
 block stays independently decodable.  As in the reference, this path is
@@ -25,8 +26,8 @@ import torch
 
 from . import format as fmt
 from .api import _CHUNK_SYMBOLS, _as_symbols, _payload_matrix
-from .blocks import (FLUSH_BYTES, compact_emissions, decode_blocks,
-                     default_capacity, encode_scan, upload_rows)
+from .blocks import (FLUSH_BYTES, decode_blocks, default_capacity,
+                     encode_blocks, upload_rows)
 from .errors import ConfigError
 from .models.table import normalize_pow2
 
@@ -36,7 +37,10 @@ def block_tables(symbols: torch.Tensor, *, alphabet: int, k: int
     """Pass 1: ``(c (B, A), cum (B, A+1))`` int64, each block's pow2
     table from its own histogram."""
     B = symbols.shape[0]
-    flat = (symbols.long() + torch.arange(B, device=symbols.device)[:, None]
+    sym = symbols.long()
+    if symbols.dtype == torch.int16:
+        sym &= 0xFFFF  # u16 bits
+    flat = (sym + torch.arange(B, device=symbols.device)[:, None]
             * alphabet).view(-1)
     counts = torch.bincount(flat, minlength=B * alphabet).view(B, alphabet)
     c = normalize_pow2(counts, k)
@@ -69,12 +73,14 @@ def encode_adaptive(
     for start in range(0, b, rows_per_chunk):
         chunk = upload_rows(rows[start : start + rows_per_chunk], device)
         c, cum = block_tables(chunk, alphabet=a, k=k)
-        emit, en, pos, lengths = encode_scan(chunk, c, cum, k=k)
-        lengths_np = lengths.cpu().numpy()
         cap = default_capacity(L, k)
-        while int(lengths_np.max()) > cap:
-            cap *= 2
-        code = compact_emissions(emit, en, pos, capacity=cap).cpu().numpy()
+        while True:
+            code, lengths = encode_blocks(chunk, c, cum, k=k, capacity=cap)
+            lengths_np = lengths.cpu().numpy()
+            if int(lengths_np.max()) <= cap:
+                break
+            cap *= 2  # rare adversarial blocks
+        code = code.cpu().numpy()
         tables.append(c.cpu().numpy().astype(np.uint32))
         payloads += [code[i, : lengths_np[i]].tobytes()
                      for i in range(code.shape[0])]

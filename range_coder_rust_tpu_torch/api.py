@@ -3,9 +3,9 @@
 The PyTorch counterpart of ``range_coder_rust_tpu/api.py``.  It takes the
 same ``CodecConfig``, writes the same container bytes and raises typed
 errors of the same names, the port's own (:mod:`.errors`).  Each entry
-point takes a ``device`` (default ``"cuda"``): the coder runs there, the
-rans16 profile through its CUDA kernels (or their plain PyTorch versions
-when the device is the CPU), the planar profile as PyTorch ops.
+point takes a ``device`` (default ``"cuda"``): the coder runs there,
+each profile through its two CUDA kernels (or their plain PyTorch
+versions when the device is the CPU).
 
 Both profiles are ported whole.  rans16: one shared order-0 table or one
 per group (``per_group_tables``), sync points (``sync_tiles``) with

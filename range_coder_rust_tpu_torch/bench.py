@@ -13,8 +13,9 @@ The counterpart of the JAX package's root ``bench.py``, in its order:
      the real container's states and region, each uploaded once outside
      the timed window; the container from ``rans_codec.encode``, decoded
      once and held to the rows;
-   * planar: ``blocks.encode_blocks`` / ``blocks.decode_blocks`` on all
-     blocks in one call each, round trip and capacity asserted;
+   * planar: ``blocks.encode_blocks`` / ``blocks.decode_blocks`` (the
+     planar kernels on a card) on all blocks in one call each, round
+     trip and capacity asserted;
    each timed as the best of 3 group averages of ``RC_BENCH_REPS`` calls
    after a warm-up, by CUDA events on a card and by the host clock on the
    CPU;
@@ -30,8 +31,8 @@ pipeline's encode+decode GB/s and ``vs_baseline`` its ratio to the scalar
 coder's.  ``encode_ns_per_step`` / ``decode_ns_per_step`` are the device
 times over the steps of a lane's chain (L a device call, the calls run
 one after another).  ``groups`` is the rans16 group count (NG), or the
-planar block count.  ``build_s`` is the nvcc build of the rans16 kernels
-(0 where it was built already, or for planar, which has no kernel).
+planar block count.  ``build_s`` is the nvcc build of the kernels (0
+where it was built already, or on the CPU).
 ``device`` and ``power_limit_w`` are the card's name and power limit from
 ``nvidia-smi``, or ``"cpu"`` and null.  The numbers are not rounded.
 
@@ -126,7 +127,7 @@ def card(device: torch.device) -> tuple:
 
 
 def _build_kernels(device: torch.device) -> float:
-    """Seconds the rans16 kernels' nvcc build took: 0 where the library
+    """Seconds the kernels' nvcc build took: 0 where the library
     was built already, or on the CPU (the plain versions run there)."""
     if device.type != "cuda":
         return 0.0
@@ -191,7 +192,7 @@ def bench_rans16(data: np.ndarray, t: Pow2Table, L: int, reps: int,
 
 def bench_planar(data: np.ndarray, t: Pow2Table, L: int, k: int, reps: int,
                  device: torch.device) -> dict:
-    """The planar block loops on all blocks at once, on the device."""
+    """The planar block coder on all blocks at once, on the device."""
     B = data.size // L
     rows = data[: B * L].reshape(B, L)
     c = torch.from_numpy(t.c.astype(np.int64)).to(device)
@@ -202,7 +203,7 @@ def bench_planar(data: np.ndarray, t: Pow2Table, L: int, k: int, reps: int,
     if int(lengths.max()) > cap:
         raise AssertionError("planar capacity overflow")
     dec = blocks.decode_blocks(code, c, cum, k=k, block_len=L)
-    if not torch.equal(dec.long(), syms):
+    if not torch.equal(dec, syms.to(torch.int32)):  # byte symbols
         raise AssertionError("planar round trip failed")
     # container-inclusive: payloads + 4 B length + 4 B CRC a block
     cont_bits = 8 * (int(lengths.sum()) + 8 * B) / (B * L)
@@ -242,7 +243,7 @@ def run(n_bytes: int | None = None, device="cuda") -> dict:
     name, watts = card(device)
     log(f"device: {device} ({name}, power limit {watts} W), "
         f"profile={profile}")
-    build_s = _build_kernels(device) if profile == "rans16" else 0.0
+    build_s = _build_kernels(device)
     t0 = time.perf_counter()
     data = make_corpus(n)
     t = table_from_data_pow2(data, 256, k)

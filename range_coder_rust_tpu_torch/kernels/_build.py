@@ -37,6 +37,7 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 
 #: C entry points: name -> argument types (all return cudaError_t as int)
 SIGNATURES = {
@@ -55,6 +56,14 @@ SIGNATURES = {
     # group_lanes, a_count, out_bytes -> staged, ring_hw, smem, threads
     # (int *)
     "rc_rans_decode_plan": [_I, _I, _I, _P, _P, _P, _P],
+    # sym, sym_bytes, c, cum, per_block, a_count, k, total, out, lengths,
+    # n_blocks, block_len, capacity, stream
+    "rc_planar_encode": [_P, _I, _P, _P, _I, _I, _I, _U64, _P, _P, _I64, _I,
+                         _I64, _P],
+    # code, row_bytes, c, cum, per_block, a_count, k, total, out, n_blocks,
+    # block_len, stream
+    "rc_planar_decode": [_P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I64, _I,
+                         _P],
 }
 
 

@@ -1,0 +1,303 @@
+"""Planar block coder: the CUDA kernels' wrappers and their plain PyTorch
+versions.
+
+The reference has no Pallas kernel for the planar profile: its coder is
+a ``jax.lax.scan`` that XLA compiles into one loop on the device
+(``encode_scan`` / ``compact_emissions`` / ``encode_scan_div`` /
+``decode_blocks`` / ``decode_blocks_div`` of
+``range_coder_rust_tpu/blocks.py`` and ``encode_scan_adaptive`` /
+``decode_blocks_adaptive`` of ``range_coder_rust_tpu/adaptive.py``).  On
+the card that loop is ``csrc/planar_encode.cu`` and
+``csrc/planar_decode.cu``, one thread a block with native u64 state
+(``csrc/planar_step.cuh``); their headers say what bounds them.  The
+plain versions are a Python loop over the ``L`` symbol positions that
+advances every block's coder at once with the closed-form transition
+(:mod:`..ops.transition`), each step a fixed chain of tensor ops.
+
+Both versions take
+
+* symbols ``(B, L)`` as ``uint8``, ``int16`` (u16 bits), ``int32`` or
+  ``int64`` (the encode), or the code matrix ``(B, C)`` ``uint8`` of any
+  width ``C`` (the decode);
+* the table as int64 tensors: one shared, ``c (A,)`` and ``cum (A+1,)``,
+  or one per block, ``(B, A)`` and ``(B, A+1)`` (the adaptive mode);
+* the total: ``k`` for ``2**k`` (``k`` in [1, 16]) or ``total``, any u32
+  (raw-count tables, the exact division);
+
+and return ``(code (B, capacity) uint8, lengths (B,) int64)`` (the
+encode; lengths with the 8 flush bytes, bytes past ``capacity`` dropped,
+zeros past each length) or ``(B, block_len)`` int32 symbols (the decode).
+Per block, the payload is byte-identical to the scalar coder's with the
+same table (reference src/range_coder.rs:53-92).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..ops import lookup
+from ..ops.transition import (decode_find_rfreq, decode_find_rfreq_div,
+                              flush_state, init_state, param_update_div,
+                              param_update_pow2)
+
+#: symbol dtypes the encode kernel reads, and their bytes
+SYMBOL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4,
+                torch.int64: 8}
+
+#: elements of one compaction index (blocks x transitions x 8 bytes):
+#: bounds its int64 index and byte tensors to 32 MiB and 4 MiB
+_COMPACT_ELEMS = 1 << 22
+
+
+def _total_of(k: Optional[int], total: Optional[int]) -> Tuple[int, int]:
+    """``(k, total)`` as the kernels take them: ``k`` in [1, 16] with
+    ``total = 2**k``, or ``k = 0`` with any u32 ``total``."""
+    if (k is None) == (total is None):
+        raise ValueError("give exactly one of k and total")
+    if k is not None:
+        if not 1 <= k <= 16:
+            raise ValueError(f"k must be in [1, 16], got {k}")
+        return k, 1 << k
+    if not 1 <= total < 1 << 32:
+        raise ValueError(f"total {total} is not a u32 >= 1")
+    return 0, int(total)
+
+
+def _check_tables(c: torch.Tensor, cum: torch.Tensor, n_blocks: int,
+                  device: torch.device) -> int:
+    """The alphabet size; raises unless ``c`` / ``cum`` are one shared
+    int64 table or one per block on ``device``."""
+    if c.dtype != torch.int64 or cum.dtype != torch.int64:
+        raise ValueError("c and cum must be int64")
+    a = c.shape[-1] if c.dim() else 0
+    shared = c.dim() == 1 and cum.shape == (a + 1,)
+    per_block = c.shape == (n_blocks, a) and cum.shape == (n_blocks, a + 1)
+    if a < 1 or not (shared or per_block):
+        raise ValueError(f"tables c {tuple(c.shape)} / cum "
+                         f"{tuple(cum.shape)}: expected (A,) / (A+1,) or "
+                         f"({n_blocks}, A) / ({n_blocks}, A+1)")
+    if c.device != device or cum.device != device:
+        raise ValueError("the tables and the blocks must be on one device")
+    return a
+
+
+def _check_encode(symbols: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                  capacity: int) -> int:
+    if symbols.dim() != 2 or symbols.dtype not in SYMBOL_BYTES:
+        raise ValueError(f"symbols must be 2-D uint8, int16, int32 or "
+                         f"int64, got {symbols.dtype} "
+                         f"{tuple(symbols.shape)}")
+    if capacity < 0:
+        raise ValueError(f"capacity {capacity} must be >= 0")
+    return _check_tables(c, cum, symbols.shape[0], symbols.device)
+
+
+def _check_decode(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                  block_len: int) -> int:
+    if code.dim() != 2 or code.dtype != torch.uint8:
+        raise ValueError(f"code must be a 2-D uint8 matrix, got {code.dtype} "
+                         f"{tuple(code.shape)}")
+    if block_len < 0:
+        raise ValueError(f"block_len {block_len} must be >= 0")
+    return _check_tables(c, cum, code.shape[0], code.device)
+
+
+# ----- the plain versions -------------------------------------------------
+
+
+def _scan(cs: torch.Tensor, cums: torch.Tensor, update: Callable
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Advance every block's coder over its ``(L, B)`` step-major symbol
+    frequencies, then flush.  Returns ``(emit, en, pos, lengths)``:
+    ``(L + 1, B)`` emitted-low words (int64) and byte counts (int32),
+    their exclusive prefix sums over the transitions, and the ``(B,)``
+    payload lengths, flush included."""
+    L, B = cs.shape
+    st = init_state((B,), cs.device)
+    emit = torch.empty((L + 1, B), dtype=torch.int64, device=cs.device)
+    en = torch.empty((L + 1, B), dtype=torch.int32, device=cs.device)
+    for i in range(L):
+        st, emit[i], en[i] = update(st, cs[i], cums[i])
+    emit[L], en[L] = flush_state(st)
+    csum = en.cumsum(0, dtype=torch.int32)
+    return emit, en, csum - en, csum[L].long()
+
+
+def _step_major(table: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
+    idx = symbols.long()
+    if symbols.dtype == torch.int16:
+        idx &= 0xFFFF  # u16 bits
+    return lookup.table_lookup(table, idx).T.contiguous()
+
+
+def encode_scan(symbols: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                *, k: int):
+    """Stage 1 of the plain encode for total ``2**k``: the emissions of
+    ``(B, L)`` symbols (see :func:`_scan`)."""
+    return _scan(_step_major(c, symbols), _step_major(cum[..., :-1], symbols),
+                 lambda st, cc, cu: param_update_pow2(st, cc, cu, k))
+
+
+def encode_scan_div(symbols: torch.Tensor, c: torch.Tensor,
+                    cum: torch.Tensor, total: int):
+    """:func:`encode_scan` for any u32 ``total`` (raw-count tables): the
+    exact ``range // total`` of the reference (src/range_coder.rs:38-40)."""
+    return _scan(_step_major(c, symbols), _step_major(cum[..., :-1], symbols),
+                 lambda st, cc, cu: param_update_div(st, cc, cu, total))
+
+
+def compact_emissions(emit: torch.Tensor, en: torch.Tensor, pos: torch.Tensor,
+                      *, capacity: int) -> torch.Tensor:
+    """Stage 2 of the plain encode: the ``(B, capacity)`` uint8 byte
+    streams.  Transition ``i`` of a block owns bytes ``[pos[i], pos[i] +
+    en[i])`` of its stream, the top ``en[i]`` bytes of ``emit[i]`` (zeros
+    past the eighth), so one scatter writes each transition's top
+    ``min(en, 8)`` bytes to ``pos + r``; bytes past ``capacity`` are
+    dropped (the caller sees the block's length exceed it)."""
+    L1, B = emit.shape
+    dev = emit.device
+    dump = B * capacity  # one extra slot takes every write that is dropped
+    out = torch.zeros(dump + 1, dtype=torch.uint8, device=dev)
+    r = torch.arange(8, device=dev)
+    shifts = 56 - 8 * r
+    per = max(1, _COMPACT_ELEMS // (L1 * 8))
+    for b0 in range(0, B, per):
+        b1 = min(B, b0 + per)
+        e = emit[:, b0:b1, None]
+        dst = pos[:, b0:b1, None].long() + r
+        ok = (r < en[:, b0:b1, None]) & (dst < capacity)
+        base = torch.arange(b0, b1, device=dev)[None, :, None] * capacity
+        out[torch.where(ok, dst + base, dump).view(-1)] = (
+            ((e >> shifts) & 0xFF).to(torch.uint8).view(-1))
+    return out[:dump].view(B, capacity)
+
+
+def planar_encode_plain(symbols: torch.Tensor, c: torch.Tensor,
+                        cum: torch.Tensor, *, k: Optional[int] = None,
+                        total: Optional[int] = None, capacity: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encode in plain PyTorch: :func:`encode_scan` (or
+    :func:`encode_scan_div`), then :func:`compact_emissions`."""
+    _check_encode(symbols, c, cum, capacity)
+    k, total = _total_of(k, total)
+    emit, en, pos, lengths = (encode_scan(symbols, c, cum, k=k) if k
+                              else encode_scan_div(symbols, c, cum, total))
+    return compact_emissions(emit, en, pos, capacity=capacity), lengths
+
+
+def _decode_scan(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                 block_len: int, find_rfreq: Callable, update: Callable
+                 ) -> torch.Tensor:
+    """Decode ``block_len`` symbols of each ``(B, C)`` stream: window,
+    target value, symbol search, and the encoder's own transition, whose
+    byte count advances the cursor (reference src/decoder.rs:38-54)."""
+    B = code.shape[0]
+    windows = lookup.code_windows(code)
+    cum_next = cum[..., 1:].contiguous()
+    st = init_state((B,), code.device)
+    start = torch.zeros(B, dtype=torch.int64, device=code.device)  # cursor-8
+    out = torch.empty((block_len, B), dtype=torch.int32, device=code.device)
+    for i in range(block_len):
+        rfreq = find_rfreq(st, lookup.window_at(windows, start))
+        idx = lookup.find_symbol(cum_next, rfreq)
+        st, _, n = update(st, lookup.table_lookup(c, idx),
+                          lookup.table_lookup(cum, idx))
+        start += n
+        out[i] = idx
+    return out.T
+
+
+def planar_decode_plain(code: torch.Tensor, c: torch.Tensor,
+                        cum: torch.Tensor, *, k: Optional[int] = None,
+                        total: Optional[int] = None, block_len: int
+                        ) -> torch.Tensor:
+    """The decode in plain PyTorch, one Python iteration a symbol."""
+    _check_decode(code, c, cum, block_len)
+    k, total = _total_of(k, total)
+    if k:
+        return _decode_scan(
+            code, c, cum, block_len,
+            lambda st, w: decode_find_rfreq(st, w, k),
+            lambda st, cc, cu: param_update_pow2(st, cc, cu, k))
+    return _decode_scan(
+        code, c, cum, block_len,
+        lambda st, w: decode_find_rfreq_div(st, w, total),
+        lambda st, cc, cu: param_update_div(st, cc, cu, total))
+
+
+# ----- the wrappers ---------------------------------------------------------
+
+
+def planar_encode_blocks(symbols: torch.Tensor, c: torch.Tensor,
+                         cum: torch.Tensor, *, k: Optional[int] = None,
+                         total: Optional[int] = None, capacity: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode ``(B, L)`` symbols into ``(code, lengths)``: the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor.  See the module
+    docstring."""
+    if symbols.device.type == "cpu":
+        return planar_encode_plain(symbols, c, cum, k=k, total=total,
+                                   capacity=capacity)
+    if symbols.device.type != "cuda":
+        raise ValueError(f"no planar encode for device {symbols.device}")
+    a = _check_encode(symbols, c, cum, capacity)
+    k, total = _total_of(k, total)
+    # keep the contiguous tensors referenced until the launch is queued
+    symbols, c, cum = symbols.contiguous(), c.contiguous(), cum.contiguous()
+    B, L = symbols.shape
+    dev = symbols.device
+    code = torch.zeros((B, capacity), dtype=torch.uint8, device=dev)
+    lengths = torch.empty(B, dtype=torch.int64, device=dev)
+    if B == 0:
+        return code, lengths
+    from ._build import check, library
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library().rc_planar_encode(
+            symbols.data_ptr(), SYMBOL_BYTES[symbols.dtype], c.data_ptr(),
+            cum.data_ptr(), int(c.dim() == 2), a, k, total, code.data_ptr(),
+            lengths.data_ptr(), B, L, capacity, stream)
+    check(err, "planar encode kernel")
+    planar_encode_blocks.launches += 1
+    return code, lengths
+
+
+def planar_decode_blocks(code: torch.Tensor, c: torch.Tensor,
+                         cum: torch.Tensor, *, k: Optional[int] = None,
+                         total: Optional[int] = None, block_len: int
+                         ) -> torch.Tensor:
+    """Decode ``(B, C)`` code rows into ``(B, block_len)`` int32 symbols:
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    Like the reference, a payload carries no end marker: the container
+    gives the symbol count."""
+    if code.device.type == "cpu":
+        return planar_decode_plain(code, c, cum, k=k, total=total,
+                                   block_len=block_len)
+    if code.device.type != "cuda":
+        raise ValueError(f"no planar decode for device {code.device}")
+    a = _check_decode(code, c, cum, block_len)
+    k, total = _total_of(k, total)
+    code, c, cum = code.contiguous(), c.contiguous(), cum.contiguous()
+    B, C = code.shape
+    out = torch.empty((B, block_len), dtype=torch.int32, device=code.device)
+    if B == 0:
+        return out
+    from ._build import check, library
+
+    with torch.cuda.device(code.device):
+        stream = torch.cuda.current_stream(code.device).cuda_stream
+        err = library().rc_planar_decode(
+            code.data_ptr(), C, c.data_ptr(), cum.data_ptr(),
+            int(c.dim() == 2), a, k, total, out.data_ptr(), B, block_len,
+            stream)
+    check(err, "planar decode kernel")
+    planar_decode_blocks.launches += 1
+    return out
+
+
+#: launches of the CUDA kernels (the plain versions do not count)
+planar_encode_blocks.launches = 0
+planar_decode_blocks.launches = 0

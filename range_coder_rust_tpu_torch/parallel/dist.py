@@ -22,7 +22,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from ..blocks import compact_emissions, decode_blocks, encode_scan
+from ..blocks import decode_blocks, encode_blocks
 from ..kernels.rans_decode import rans_decode_tiled
 from ..kernels.rans_encode import rans_encode_tiled
 
@@ -61,16 +61,18 @@ def make_sharded_codec(
     uint8, lengths (B,) int64); decode(code (B, C) uint8, c, cum) ->
     symbols (B, block_len) int32.  Tables are int64 tensors, one shared
     table (copied to each shard's device).  ``B`` must be a multiple of
-    the number of devices."""
+    the number of devices.  Each shard runs the planar wrappers
+    (:func:`..blocks.encode_blocks`, :func:`..blocks.decode_blocks`; the
+    CUDA kernels on a card, one launch a shard)."""
     devs = default_mesh(devices)
 
     def enc(symbols: torch.Tensor, c: torch.Tensor, cum: torch.Tensor):
         code, lengths = [], []
         for dev, (lo, hi) in zip(devs, shard_bounds(symbols.shape[0],
                                                     len(devs))):
-            emit, en, pos, n = encode_scan(
-                symbols[lo:hi].to(dev), c.to(dev), cum.to(dev), k=k)
-            code.append(compact_emissions(emit, en, pos, capacity=capacity))
+            cd, n = encode_blocks(symbols[lo:hi].to(dev), c.to(dev),
+                                  cum.to(dev), k=k, capacity=capacity)
+            code.append(cd)
             lengths.append(n)
         return _gather(code, devs), _gather(lengths, devs)
 

@@ -150,8 +150,10 @@ def encode_multihost(
     ``local_rows``: ``(B_local, L)`` symbols, exactly the rows
     :func:`local_block_range` assigns this rank.  ``c`` / ``cum``: the
     shared pow2 table (every rank passes the same one).  ``n_blocks``: the
-    global block count.  A block that overflows ``capacity`` is encoded
-    again with twice the room, as ``api.encode`` does.
+    global block count.  The rows are coded by
+    :func:`.dist.make_sharded_codec` on this rank's device (the planar
+    encode kernel on a card).  A block that overflows ``capacity`` is
+    encoded again with twice the room, as ``api.encode`` does.
 
     Returns ``(payloads, lengths)`` on every rank: the global list of
     trimmed block payloads in block order and their ``(B,)`` lengths."""

@@ -248,3 +248,123 @@ def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device, *,
         errs["rans_decode"] = max(errs["rans_decode"],
                                   decode_err(sub_k, sub_p))
     return errs, enc_p, dec_p
+
+
+#: the small geometries the planar kernels are held against their plain
+#: versions on: k = 16 with a shared table in shared memory on u8 rows at
+#: L = 512, a 4096-symbol u16 alphabet, a 65536-symbol one (its table read
+#: from device memory), a raw total, a total of 1 (a one-symbol
+#: alphabet: rpt is the whole range), per-block tables at k = 12, a forced
+#: capacity overflow, an odd L with a capacity that is not a multiple of 4
+#: (byte stores), and a decode row width that is not one; every case's
+#: encode also runs on its symbols as int32 and int64 rows
+PLANAR_CASES = ["k16_shared_u8_L512", "A4096_u16", "A65536_device_table",
+                "raw_total", "total_1", "per_block_k12",
+                "capacity_overflow", "odd_L63_cap199", "decode_width_1021"]
+
+
+def planar_case(name: str) -> dict:
+    """A named planar case: ``rows`` (B, L) at the width the codec uploads
+    (u8, int16 holding u16 bits, int32), ``values`` (the symbol indices,
+    int32), ``c`` / ``cum`` (int64 numpy; shared or per block),
+    ``total`` ({"k": k} or {"total": t}), the encode's ``capacity`` and
+    the decode's row ``width``."""
+    from .blocks import default_capacity, upload_rows
+    from .models.table import build_table_pow2, normalize_pow2
+
+    B, L, k, a = 128, 64, 16, 256
+    cap = width = None
+    if name == "k16_shared_u8_L512":
+        B, L = 256, 512
+        values = zipf(B * L, a, 21)
+    elif name == "A4096_u16":
+        a = 4096
+        values = zipf(B * L, a, 22, alpha=0.9)
+    elif name == "A65536_device_table":
+        a = 65536
+        values = zipf(B * L, a, 23, alpha=0.8)
+        values[::97] = 65535
+    elif name == "raw_total":
+        values = zipf(B * L, 100, 24)
+    elif name == "total_1":
+        a, values = 1, np.zeros(B * L, np.int32)
+    elif name == "per_block_k12":
+        k = 12
+        values = zipf(B * L, a, 25)
+        values[: 8 * L] = np.random.default_rng(25).integers(0, a, 8 * L)
+    elif name == "capacity_overflow":
+        values = zipf(B * L, a, 26, alpha=0.6)
+        cap = 40  # about half a block: most rows cut
+    elif name == "odd_L63_cap199":
+        L = 63
+        values = zipf(B * L, a, 27)
+        cap = 199
+    elif name == "decode_width_1021":
+        L = 500
+        values = zipf(B * L, a, 28, alpha=0.6)
+        width = 1021
+    else:
+        raise KeyError(name)
+    values = values.reshape(B, L)
+    if name in ("raw_total", "total_1"):
+        c = (np.ones(1, np.int64) if name == "total_1" else
+             np.bincount(values.reshape(-1), minlength=a).astype(np.int64))
+        if name == "raw_total":
+            c[-1] += 1  # total 8193: odd, not a power of two
+        cum = np.concatenate([[0], c.cumsum()])
+        total = {"total": int(cum[-1])}
+    elif name == "per_block_k12":
+        counts = np.stack([np.bincount(r, minlength=a) for r in values])
+        c = normalize_pow2(torch.from_numpy(counts), k).numpy()
+        cum = np.pad(c.cumsum(1), ((0, 0), (1, 0)))
+        total = {"k": k}
+    else:
+        t = build_table_pow2(np.bincount(values.reshape(-1), minlength=a)
+                             .astype(np.uint64), k)
+        c, cum = t.c.astype(np.int64), t.cum.astype(np.int64)
+        total = {"k": k}
+    if cap is None:
+        cap = (default_capacity(L, k) if "k" in total
+               else -(-(6 * L + 8) // 4) * 4)
+    host = values.astype(np.uint8 if a <= 256 else np.uint16)
+    return {"rows": upload_rows(host, "cpu").numpy(), "values": values,
+            "c": c, "cum": cum, "total": total, "capacity": cap,
+            "width": width}
+
+
+def planar_vs_plain(name: str, device) -> dict:
+    """Encode a planar case with the kernel on ``device`` (its rows at the
+    codec's width, then widened to int32 and int64) and the plain version
+    on the CPU, then decode the plain code matrix (cut to the case's row
+    width) both ways.  Returns ``{"planar_encode": max_abs_err
+    of code bytes and lengths, "planar_decode": max_abs_err of the
+    symbols}``.  Raises ``AssertionError`` unless the plain decode gives
+    the symbols back where no row was cut."""
+    case = planar_case(name)
+    c, cum = torch.from_numpy(case["c"]), torch.from_numpy(case["cum"])
+    rows = torch.from_numpy(case["rows"])
+    kw, cap = case["total"], case["capacity"]
+    L = rows.shape[1]
+    code_k, len_k = kernels.planar_encode_blocks(
+        rows.to(device), c.to(device), cum.to(device), capacity=cap, **kw)
+    code_p, len_p = kernels.planar_encode_blocks(rows, c, cum, capacity=cap,
+                                                 **kw)
+    enc_err = max(_max_abs(code_k, code_p), _max_abs(len_k, len_p))
+    values = torch.from_numpy(case["values"])
+    for wide in (values, values.long()):
+        code_w, len_w = kernels.planar_encode_blocks(
+            wide.to(device), c.to(device), cum.to(device), capacity=cap, **kw)
+        enc_err = max(enc_err, _max_abs(code_w, code_p),
+                      _max_abs(len_w, len_p))
+    width = case["width"] or cap
+    code = code_p[:, :width].contiguous() if width <= cap else torch.cat(
+        [code_p, code_p.new_zeros((code_p.shape[0], width - cap))], 1)
+    dec_k = kernels.planar_decode_blocks(code.to(device), c.to(device),
+                                         cum.to(device), block_len=L, **kw)
+    dec_p = kernels.planar_decode_blocks(code, c, cum, block_len=L, **kw)
+    whole = (len_p <= width).numpy()
+    if not np.array_equal(dec_p.numpy()[whole], case["values"][whole]):
+        raise AssertionError(f"{name}: plain decode does not give the "
+                             "symbols back")
+    return {"planar_encode": enc_err,
+            "planar_decode": _max_abs(dec_k, dec_p)}

@@ -9,8 +9,8 @@ seed 0xC0, ``CodecConfig(profile="rans16", block_len=32768)``; with
 ``--adaptive``, its adaptive path: the mixed corpus (seed 5),
 ``CodecConfig(profile="rans16", per_group_tables=True, block_len=32)``;
 with ``--planar``, its planar path: the same Zipf bytes with
-``CodecConfig()`` (planar, one device call a 16 MiB; the trace of a
-planar call holds some 40 kernels a step, so keep ``--corpus-mb`` at 16).
+``CodecConfig()`` (planar, one device call a 16 MiB, each a launch of
+the planar encode or decode kernel).
 After one
 warm-up round trip (kernel build, allocator), each direction runs
 

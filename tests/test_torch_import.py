@@ -49,7 +49,8 @@ cfg = rt.CodecConfig(profile="rans16", block_len=16, group_lanes=128)
 blob = rt.encode(data, config=cfg, device="cpu")
 out = rt.decode(blob, device="cpu")
 assert out.dtype == np.uint8 and np.array_equal(out, data)
-assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0}
+assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
+                             "planar_encode": 0, "planar_decode": 0}
 from range_coder_rust_tpu_torch import adaptive
 for blob in (rt.encode(data, config=rt.CodecConfig(block_len=64),
                        device="cpu"),

@@ -8,8 +8,10 @@ machine run it as
     python -m pytest --noconftest tests/test_torch_kernels_gpu.py -m gpu -q
 
 Outputs are integers: kernel and plain version must be identical, and
-both must equal the NumPy spec ``range_coder_rust_tpu_torch.rans.encode_lanes``
-(the port's copy of the JAX package's).
+the rans16 ones must equal the NumPy spec
+``range_coder_rust_tpu_torch.rans.encode_lanes`` (the port's copy of the
+JAX package's).  The planar kernels run the cases of
+``testing.PLANAR_CASES`` (``chip_smoke.py`` phase 3's).
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ from range_coder_rust_tpu_torch import kernels, rans, testing
 from range_coder_rust_tpu_torch import rans_codec as t_codec
 from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
 from range_coder_rust_tpu_torch.testing import (
-    CASE_OPTIONS, KERNEL_CASES, kernel_case, kernels_vs_plain, zipf)
+    CASE_OPTIONS, KERNEL_CASES, PLANAR_CASES, kernel_case, kernels_vs_plain,
+    planar_vs_plain, zipf)
 
 pytestmark = pytest.mark.gpu
 
@@ -57,7 +60,8 @@ def test_cuda_api_roundtrip_counts_launches(cuda_device):
     blob = rt.encode(data, config=cfg, device=cuda_device)
     assert blob == rt.encode(data, config=cfg, device="cpu")
     out = rt.decode(blob, device=cuda_device)
-    assert rt.launch_counts() == {"rans_encode": 1, "rans_decode": 1}
+    assert rt.launch_counts() == {"rans_encode": 1, "rans_decode": 1,
+                                  "planar_encode": 0, "planar_decode": 0}
     np.testing.assert_array_equal(out, data)
 
 
@@ -209,11 +213,19 @@ def test_cuda_encode_int16_symbols_outside_table_do_not_fault(cuda_device):
     torch.cuda.synchronize()  # raises if the kernel faulted
 
 
+@pytest.mark.parametrize("name", PLANAR_CASES)
+def test_cuda_planar_kernels_match_plain(name, cuda_device):
+    """Each planar kernel equals its plain version on the CPU: code bytes,
+    lengths and decoded symbols."""
+    assert planar_vs_plain(name, cuda_device) == {"planar_encode": 0,
+                                                  "planar_decode": 0}
+
+
 @pytest.mark.parametrize("mode", ["shared", "raw_total", "per_block"])
 def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
-    """The planar profile on the card (PyTorch ops on CUDA tensors): the
-    container equals the CPU's and decodes back, with no rans16 kernel
-    launched."""
+    """The planar profile on the card (the planar kernels): the container
+    equals the CPU's and decodes back, each call one launch of each planar
+    kernel and no rans16 kernel."""
     import range_coder_rust_tpu_torch as rt
     from range_coder_rust_tpu_torch import adaptive
 
@@ -230,7 +242,8 @@ def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     blob = enc(cuda_device)
     assert blob == enc("cpu")
     np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
-    assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0}
+    assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
+                                  "planar_encode": 1, "planar_decode": 1}
 
 
 @pytest.mark.parametrize("per_group", [False, True])
@@ -259,7 +272,8 @@ def test_cuda_sharded_rans16_matches_single_call(per_group, cuda_device):
                          sizes.sum(1).cumsum(0)])
     out = dec(states, region, grp_off, cum, group_lanes=g,
               out_dtype=torch.uint8)
-    assert kernels.launch_counts() == {"rans_encode": 2, "rans_decode": 2}
+    assert kernels.launch_counts() == {"rans_encode": 2, "rans_decode": 2,
+                                       "planar_encode": 0, "planar_decode": 0}
     n = int(one[1].sum())
     for got, want in zip((states, sizes, region, syncs),
                          (one[0], one[1], one[2][:n], one[3])):
