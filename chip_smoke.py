@@ -60,9 +60,12 @@ Phases (any failure ends the run with a non-zero exit):
    CPU (byte-equal), and five ``decode_range`` slices; then ("9 planar
    loops") the first device call's blocks through each planar kernel and
    its plain version on the card: the payloads byte-equal to the
-   container's, the decode equal to the rows, each kernel's time (CUDA
-   events) beside the plain version's and its bound, and the device
-   kernels and busy share of one kernel round trip (``torch.profiler``);
+   container's, the decode of the container's payloads where they lie
+   (joined, as ``api.decode`` uploads them) and of their ``(B, C)``
+   matrix equal to the rows, each kernel's time (CUDA events; the
+   decode's in both forms) beside the plain version's and its bound, and
+   the device kernels and busy share of one kernel round trip
+   (``torch.profiler``);
 10. the other planar paths, one device call (16 MiB) each: raw-count
    tables (total 2^24, where the reference switches its decode divide),
    a 4096-symbol alphabet under a rans16 config (the planar fallback),
@@ -768,12 +771,14 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
     2^24 symbols of ``data``: 32768 blocks of 512, the container's table,
     k = 16) through each planar kernel and its plain version on the card.
     The kernel's payloads must be the container's and the plain version's
-    bytes, and the decode of the container's code matrix (as
-    ``api.decode`` builds it) the rows, both ways.  Returns each kernel's
-    ms (CUDA events, mean of 3 after a warm-up) beside the plain
-    version's (host clock, one run) and its bound, the largest
-    differences, and the device kernels and busy share of one kernel
-    round trip (``torch.profiler``)."""
+    bytes, and the decode the rows, both ways, in both input forms: the
+    container's payloads where they lie (joined, as ``api.decode``
+    uploads them) and their ``(B, C)`` matrix.  Returns each kernel's
+    ms (CUDA events, mean of 3 after a warm-up; the decode's on the flat
+    payloads, the matrix form's beside it) beside the plain version's
+    (host clock, one run) and its bound, the largest differences, and the
+    device kernels and busy share of one kernel round trip
+    (``torch.profiler``)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -798,25 +803,38 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
             != cont.payloads[:nb]):
         raise AssertionError(f"planar encode kernel: {err}, or its payloads "
                              "differ from the container's")
+    # the decode's two input forms: the payloads where they lie (joined,
+    # with offsets and lengths, as api.decode uploads them) and the
+    # (B, C) matrix of the rows, C rounded up to 1 KiB
+    flat, offs, plens = blocks.payload_buffers(cont.payloads[:nb],
+                                               cont.lengths[:nb], device)
     width = -(-max(int(cont.lengths.max()), 8) // 1024) * 1024
-    code = torch.from_numpy(api._payload_matrix(cont, 0, nb, width)).to(
-        device)
+    rows_m = kernels.planar.payload_rows(flat, offs, plens)
+    code = torch.zeros((nb, width), dtype=torch.uint8, device=device)
+    code[:, : rows_m.shape[1]] = rows_m
     dec_kw = dict(k=k, block_len=L)
-    dec_k = kernels.planar_decode_blocks(code, c, cum, **dec_kw)
+    flat_kw = dict(dec_kw, offsets=offs, lengths=plens)
+    dec_k = kernels.planar_decode_blocks(flat, c, cum, **flat_kw)
+    dec_m = kernels.planar_decode_blocks(code, c, cum, **dec_kw)
     dec_p, dec_plain_ms = plain_wall(
-        lambda: kernels.planar_decode_plain(code, c, cum, **dec_kw))
-    err["planar_decode"] = testing._max_abs(dec_k, dec_p)
+        lambda: kernels.planar_decode_plain(flat, c, cum, **flat_kw))
+    err["planar_decode"] = max(testing._max_abs(dec_k, dec_p),
+                               testing._max_abs(dec_m, dec_p))
     if err["planar_decode"] or not torch.equal(dec_k, rows.to(torch.int32)):
         raise AssertionError(f"planar decode kernel: {err}, or not the rows")
     smoke.say(f"planar kernels on the first device call ({nb} blocks x {L}, "
-              f"code rows of {width} B): payloads == the container's == the "
-              f"plain version's, decode == the rows == the plain version's")
+              f"{flat.numel()} payload bytes; code rows of {width} B): "
+              f"payloads == the container's == the plain version's, decode "
+              f"of the flat payloads and of the matrix == the rows == the "
+              f"plain version's")
     times = {
         "planar_encode": (cuda_ms(lambda: kernels.planar_encode_blocks(
             rows, c, cum, **enc_kw)), enc_plain_ms),
         "planar_decode": (cuda_ms(lambda: kernels.planar_decode_blocks(
-            code, c, cum, **dec_kw)), dec_plain_ms),
+            flat, c, cum, **flat_kw)), dec_plain_ms),
     }
+    matrix_ms = cuda_ms(lambda: kernels.planar_decode_blocks(
+        code, c, cum, **dec_kw))
     # what the data needs: the symbols at their width and the table in,
     # the payload bytes and lengths out (the encode); the payload bytes
     # and the table in, the int32 symbols out (the decode)
@@ -835,10 +853,12 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
                   f"{k_ms:.4f} ms ({k_ms / L * 1e6:.2f} ns a step), plain "
                   f"PyTorch on the card {p_ms:.4f} ms, bound {b_ms:.6f} ms "
                   f"({b_by})")
+    smoke.say(f"planar_decode of the (B, C) matrix: {matrix_ms:.4f} ms "
+              f"({matrix_ms / L * 1e6:.2f} ns a step)")
 
     def round_trip():
         kernels.planar_encode_blocks(rows, c, cum, **enc_kw)
-        kernels.planar_decode_blocks(code, c, cum, **dec_kw)
+        kernels.planar_decode_blocks(flat, c, cum, **flat_kw)
 
     round_trip()
     sync(device)
@@ -849,6 +869,7 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     res = {"times": times, "bounds": bounds, "err": err,
+           "matrix_ms": matrix_ms,
            "device_kernels": sorted({e.name[:60] for e in events}),
            "device_events": len(events),
            "busy_share": busy_us / (wall * 1e6) if events else None}
@@ -1311,7 +1332,8 @@ def main() -> int:
                                  "dec_step_ms")}
         for name, r in {"main": planar, **other}.items()}
         | {"kernels": {k: planar["kernels"][k] for k in (
-            "times", "bounds", "device_events", "busy_share")}}))
+            "times", "bounds", "matrix_ms", "device_events",
+            "busy_share")}}))
     for name in ("rans_encode", "rans_decode"):
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
     for name in ("planar_encode", "planar_decode"):
@@ -1350,6 +1372,8 @@ def main() -> int:
          "library_ms": None,
          "other_paths_launches": {p: r["counts"][name]
                                   for p, r in other.items()},
+         **({"matrix_ms": planar["kernels"]["matrix_ms"]}
+            if name == "planar_decode" else {}),
          "multihost_launches": multi["launches"][name]}
         for name in ("planar_encode", "planar_decode")]}
     smoke.say("CLI walls (s): " + json.dumps(cli))

@@ -25,9 +25,9 @@ import numpy as np
 import torch
 
 from . import format as fmt
-from .api import _CHUNK_SYMBOLS, _as_symbols, _payload_matrix
-from .blocks import (FLUSH_BYTES, decode_blocks, default_capacity,
-                     encode_blocks, upload_rows)
+from .api import _CHUNK_SYMBOLS, _as_symbols
+from .blocks import (decode_payloads, default_capacity, encode_blocks,
+                     payload_buffers, upload_rows)
 from .errors import ConfigError
 from .models.table import normalize_pow2
 
@@ -112,14 +112,14 @@ def decode_adaptive_container(cont: fmt.Container, device="cuda"
     b, L, n = cont.n_blocks, cont.block_len, cont.n_symbols
     c_all = torch.from_numpy(np.asarray(cont.tables_c, np.int64))
     cum_all = torch.nn.functional.pad(c_all.cumsum(1), (1, 0))
-    cap = -(-max(int(cont.lengths.max()), FLUSH_BYTES) // 1024) * 1024
     rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
     out = np.empty(b * L, np.int32)
     for start in range(0, b, rows_per_chunk):
         stop = min(start + rows_per_chunk, b)
-        code = torch.from_numpy(_payload_matrix(cont, start, stop, cap))
-        dec = decode_blocks(code.to(device), c_all[start:stop].to(device),
-                            cum_all[start:stop].to(device), k=cont.k,
-                            block_len=L)
+        code, offs, lens = payload_buffers(
+            cont.payloads[start:stop], cont.lengths[start:stop], device)
+        dec = decode_payloads(code, offs, lens, c_all[start:stop].to(device),
+                              cum_all[start:stop].to(device), k=cont.k,
+                              block_len=L)
         out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
     return out[:n]

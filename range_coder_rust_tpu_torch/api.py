@@ -20,7 +20,7 @@ payloads by their lengths, and pack.  A block that overflows its capacity
 is encoded again with twice the room, never cut silently.  The planar
 phases run in named profiler regions (``planar.histogram``,
 ``planar.upload``, ``planar.encode_steps`` / ``planar.decode_steps``,
-``planar.d2h``, ``planar.payloads``, ``planar.payload_matrix``,
+``planar.d2h``, ``planar.payloads``, ``planar.payload_bytes``,
 ``planar.pack``; :func:`.utils.profiling.annotate`), as rans16's do in
 :mod:`.rans_codec`.
 """
@@ -28,7 +28,6 @@ phases run in named profiler regions (``planar.histogram``,
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import zlib
 from typing import Optional
@@ -38,9 +37,8 @@ import torch
 
 from . import format as fmt
 from . import rans_codec
-from .blocks import (FLUSH_BYTES, decode_blocks, decode_blocks_div,
-                     default_capacity, encode_blocks, encode_blocks_div,
-                     upload_rows)
+from .blocks import (decode_payloads, default_capacity, encode_blocks,
+                     encode_blocks_div, payload_buffers, upload_rows)
 from .errors import ChecksumMismatch, ConfigError, ZeroFrequency
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
@@ -398,42 +396,23 @@ def _decode_container(cont: fmt.Container, device) -> np.ndarray:
         return decode_adaptive_container(cont, device)
     b, L = cont.n_blocks, cont.block_len
     c = np.asarray(cont.tables_c, np.int64)
-    if cont.k == 0:  # raw-total container (FLAG_RAW_TOTAL)
-        decode_rows = functools.partial(decode_blocks_div,
-                                        total=int(c.sum()), block_len=L)
-    else:
-        decode_rows = functools.partial(decode_blocks, k=cont.k, block_len=L)
+    # a raw-total container (FLAG_RAW_TOTAL) has k = 0
+    total = {"k": cont.k} if cont.k else {"total": int(c.sum())}
     c_dev = torch.from_numpy(c).to(device)
     cum_dev = torch.from_numpy(np.concatenate([[0], np.cumsum(c)])).to(device)
-    # capacity rounded up to 1 KiB, so that calls share shapes
-    cap = -(-max(int(cont.lengths.max()), FLUSH_BYTES) // 1024) * 1024
     rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
     out = np.empty(b * L, np.int32)
     for start in range(0, b, rows_per_chunk):
         stop = min(start + rows_per_chunk, b)
-        with annotate("planar.payload_matrix", device):
-            code = torch.from_numpy(_payload_matrix(cont, start, stop, cap))
-        with annotate("planar.upload", device):
-            code = code.to(device)
+        with annotate("planar.payload_bytes", device):
+            code, offs, lens = payload_buffers(
+                cont.payloads[start:stop], cont.lengths[start:stop], device)
         with annotate("planar.decode_steps", device):
-            dec = decode_rows(code, c_dev, cum_dev)
+            dec = decode_payloads(code, offs, lens, c_dev, cum_dev,
+                                  block_len=L, **total)
         with annotate("planar.d2h", device):
             out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
     return out[: cont.n_symbols]
-
-
-def _payload_matrix(cont: fmt.Container, start: int, stop: int, cap: int
-                    ) -> np.ndarray:
-    """Blocks ``[start, stop)`` as a zero-padded ``(rows, cap)`` uint8
-    matrix, filled by one masked scatter."""
-    lens = np.asarray(cont.lengths[start:stop], np.int64)
-    flat = np.frombuffer(b"".join(cont.payloads[start:stop]), np.uint8)
-    col = np.arange(cap, dtype=np.int64)
-    mask = col[None, :] < lens[:, None]
-    src = np.concatenate([[0], np.cumsum(lens)])[:-1, None] + col[None, :]
-    code = np.zeros((stop - start, cap), np.uint8)
-    code[mask] = flat[src[mask]]
-    return code
 
 
 def decode_bytes(blob: bytes, *, device="cuda", **kw) -> bytes:

@@ -17,7 +17,7 @@ from :mod:`.kernels.planar` under their reference names.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,9 +30,9 @@ from .kernels.planar import (compact_emissions, encode_scan, encode_scan_div,
 FLUSH_BYTES = 8
 
 __all__ = ["FLUSH_BYTES", "compact_emissions", "decode_blocks",
-           "decode_blocks_div", "default_capacity", "encode_blocks",
-           "encode_blocks_div", "encode_scan", "encode_scan_div",
-           "upload_rows"]
+           "decode_blocks_div", "decode_payloads", "default_capacity",
+           "encode_blocks", "encode_blocks_div", "encode_scan",
+           "encode_scan_div", "payload_buffers", "upload_rows"]
 
 
 def default_capacity(block_len: int, k: int) -> int:
@@ -87,3 +87,32 @@ def decode_blocks_div(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
     """:func:`decode_blocks` for any u32 ``total``."""
     return planar_decode_blocks(code, c, cum, total=total,
                                 block_len=block_len)
+
+
+def payload_buffers(payloads, lengths, device
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A container's payloads as the decode takes them where they lie:
+    ``(code, offsets, lengths)`` on ``device``, the payloads joined into
+    one flat uint8 buffer (one host copy, one upload) and each block's
+    offset and length in it (int64)."""
+    lens = np.asarray(lengths, np.int64)
+    offs = np.zeros(lens.size, np.int64)
+    np.cumsum(lens[:-1], out=offs[1:])
+    flat = np.frombuffer(bytearray().join(payloads), np.uint8)
+    return (torch.from_numpy(flat).to(device),
+            torch.from_numpy(offs).to(device),
+            torch.from_numpy(lens).to(device))
+
+
+def decode_payloads(code: torch.Tensor, offsets: torch.Tensor,
+                    lengths: torch.Tensor, c: torch.Tensor,
+                    cum: torch.Tensor, *, block_len: int,
+                    k: Optional[int] = None, total: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Decode payloads where they lie (block ``b`` is ``lengths[b]`` bytes
+    at ``offsets[b]`` of the flat uint8 ``code``; :func:`payload_buffers`)
+    into ``(B, block_len)`` int32 symbols, with a total of ``2**k`` or a
+    raw u32 ``total``."""
+    return planar_decode_blocks(code, c, cum, k=k, total=total,
+                                block_len=block_len, offsets=offsets,
+                                lengths=lengths)

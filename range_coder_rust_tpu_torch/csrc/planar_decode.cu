@@ -8,23 +8,44 @@
 // (planar_decode_plain), which launches some 67 small kernels a step and
 // builds a (B, C + 1) int64 window matrix.
 //
-// What it computes, per block b (row b of a (B, C) uint8 code matrix, of
-// any width C): `block_len` symbols, each the count of cum[a + 1] <= rfreq
-// (reference examples/sample_impl.rs:33-44) for the target rfreq of the
-// 64-bit window of bytes [cursor - 8, cursor) (reference
-// src/decoder.rs:27-35; bytes past the row read 0), then the encoder's
-// own transition (planar_step.cuh), whose byte count advances the
-// cursor.  Output (B, block_len) int32.  Totals and tables as in
-// planar_encode.cu.
+// What it computes, per block b: `block_len` symbols, each the count of
+// cum[a + 1] <= rfreq (reference examples/sample_impl.rs:33-44) for the
+// target rfreq of the 64-bit window of bytes [cursor - 8, cursor) of the
+// block's payload (reference src/decoder.rs:27-35; bytes past the
+// payload's length read 0), then the encoder's own transition
+// (planar_step.cuh), whose byte count advances the cursor.  The payloads
+// come where they lie: block b's are the lengths[b] bytes at offsets[b]
+// of one flat byte buffer (as the container holds them, joined), or row b
+// of a (B, C) matrix (offsets b * C, lengths C).  An offset or length
+// outside the buffer is cut to it.  Output (B, block_len) int32.  Totals
+// and tables as in planar_encode.cu.
 //
-// What bounds it on the H100: the chain, as in the encode, and each step
-// is longer: a full u64 division (CUDA's 64-bit `/` is a software
-// routine, exact; a total of 2^k saves only the range's shift), a binary
-// search of log2(A + 1) dependent table reads, then the transition.  The
-// design keeps the window in a register and shifts in the n bytes a step
-// consumes (no window matrix), reads a shared table of A <= 6143 symbols
-// from shared memory, and keeps the state in native u64.
+// What bounds it on the H100: the chain.  One thread owns one block and
+// its L dependent steps; 32768 blocks are 256 threads an SM, two warps a
+// scheduler, too few to hide a step's latency, so the kernel takes about
+// L times one step's latency.  The first design's step was a u64
+// division (a software routine), log2(A + 1) dependent shared-memory
+// reads of a binary search, the transition, then up to 14 dependent
+// single-byte loads, each behind a branch, and a 4-byte store.  The
+// design shortens that chain
+// (scripts_torch/decode_variants.py --kernel planar_decode puts each
+// point back alone; the macros are listed in planar_device.cuh):
+// 1. The symbol from a slot table in one shared-memory load, for a shared
+//    table of total 2^k: 2^k u8 slots (A <= 256) or u16 ones, built by
+//    symbol ranges at the CTA's start after the (cum, c) pairs, 64 KiB or
+//    128 KiB behind the shared-memory opt-in.  Raw totals, per-block
+//    tables and tables too wide for shared memory keep the binary search.
+// 2. The target without a u64 division: a float (2^k totals) or double
+//    (raw totals) reciprocal estimate and one exact correction by a
+//    128-bit product (planar_step.cuh's quotient); a raw total's rpt by a
+//    multiply-high with a reciprocal computed once a launch (Divisor).
+// 3. The code bytes read ahead in registers: aligned 16-byte loads one
+//    chunk ahead of the window, and the n bytes of a transition moved in
+//    by shifts (CodeReader), not n loads.
+// 4. Four symbols a 16-byte store.
+// 5. 256-thread CTAs (planar_device.cuh says why).
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -35,61 +56,151 @@ namespace {
 
 using planar::u64;
 
-template <bool kDiv, bool kSmem>
-__global__ void __launch_bounds__(planar::kThreads)
-    planar_decode_kernel(const uint8_t* __restrict__ code, long long row_bytes,
-                         const long long* __restrict__ c,
+//: where a CTA finds its symbols: a search of the pairs in device memory
+//: or in shared memory, or a slot table of u8 or u16 slots
+enum Mode { kGlobal, kSmemPairs, kSlots8, kSlots16 };
+
+template <int kMode>
+struct SlotOf {
+  using type = uint8_t;
+};
+template <>
+struct SlotOf<kSlots16> {
+  using type = uint16_t;
+};
+
+template <typename Total, typename Find, typename Table>
+__device__ __forceinline__ void decode_one(const uint8_t* start,
+                                           long long len, int L,
+                                           const Table& t, int a_count,
+                                           const Total& tot, const Find& find,
+                                           int32_t* out, bool vec) {
+#if defined(RC_VARIANT_PLANAR_BYTE_REFILL)
+  planar::ByteReader code = planar::byte_reader(start, len);
+#else
+  planar::CodeReader code = planar::code_reader(start, len);
+#endif
+  planar::decode_block_fast(&code, L, t, a_count, tot, find, out, vec);
+}
+
+template <typename Total, int kMode>
+__global__ void __launch_bounds__(planar::kDecodeThreads)
+    planar_decode_kernel(const uint8_t* __restrict__ code,
+                         long long code_bytes,
+                         const long long* __restrict__ offsets,
+                         const long long* __restrict__ lengths,
+                         long long row_bytes, const long long* __restrict__ c,
                          const long long* __restrict__ cum, int per_block,
-                         int a_count, int k, u64 total,
-                         int32_t* __restrict__ out, long long n_blocks,
-                         int L) {
-  extern __shared__ uint2 smem_table[];
-  if (kSmem) planar::stage_table(smem_table, c, cum, a_count);
+                         int a_count, Total tot, int32_t* __restrict__ out,
+                         long long n_blocks, int L) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint2* pairs = reinterpret_cast<uint2*>(smem);
+  using Slot = typename SlotOf<kMode>::type;
+  Slot* slots = reinterpret_cast<Slot*>(pairs + a_count + 1);
+  bool use_slots = false;
+  if (kMode != kGlobal) planar::stage_table(pairs, c, cum, a_count);
+  if (kMode == kSlots8 || kMode == kSlots16)
+    use_slots = planar::build_slots(slots, pairs, a_count, tot.qmax + 1);
   const long long b =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= n_blocks) return;
-  const auto table =
-      planar::TableFor<kSmem>::get(smem_table, c, cum, a_count, per_block, b);
-  planar::decode_block<kDiv>(planar::CodeRow{code + b * row_bytes, row_bytes},
-                             L, table, a_count, k, total, out + b * L);
+  long long off = offsets ? offsets[b] : b * row_bytes;
+  long long len = lengths ? lengths[b] : row_bytes;
+  if (off < 0 || off > code_bytes) off = len = 0;
+  if (len > code_bytes - off) len = code_bytes - off;
+  if (len < 0) len = 0;
+  int32_t* row = out + b * L;
+#if defined(RC_VARIANT_PLANAR_SCALAR_STORES)
+  const bool vec = false;
+#else
+  const bool vec =
+      (L & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+#endif
+  auto table = planar::TableFor<kMode != kGlobal>::get(pairs, c, cum,
+                                                      a_count, per_block, b);
+  if (use_slots)
+    decode_one(code + off, len, L, table, a_count, tot,
+               planar::SlotFind<Slot>{slots}, row, vec);
+  else
+    decode_one(code + off, len, L, table, a_count, tot,
+               planar::SearchFind<decltype(table)>{table, a_count}, row, vec);
 }
 
-template <bool kDiv>
-cudaError_t launch(const uint8_t* code, long long row_bytes,
-                   const long long* c, const long long* cum, int per_block,
-                   int a_count, int k, u64 total, int32_t* out,
-                   long long n_blocks, int L, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>(
-      (n_blocks + planar::kThreads - 1) / planar::kThreads);
-  const size_t smem = planar::smem_table_bytes(per_block, a_count);
-  if (smem)
-    planar_decode_kernel<kDiv, true><<<grid, planar::kThreads, smem, stream>>>(
-        code, row_bytes, c, cum, per_block, a_count, k, total, out, n_blocks,
-        L);
-  else
-    planar_decode_kernel<kDiv, false><<<grid, planar::kThreads, 0, stream>>>(
-        code, row_bytes, c, cum, per_block, a_count, k, total, out, n_blocks,
-        L);
+template <typename Total, int kMode>
+cudaError_t launch_mode(size_t smem, unsigned grid, const uint8_t* code,
+                        long long code_bytes, const long long* offsets,
+                        const long long* lengths, long long row_bytes,
+                        const long long* c, const long long* cum,
+                        int per_block, int a_count, int k, u64 total,
+                        int32_t* out, long long n_blocks, int L,
+                        cudaStream_t stream) {
+  const auto kernel = planar_decode_kernel<Total, kMode>;
+  cudaError_t err = planar::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, planar::kDecodeThreads, smem, stream>>>(
+      code, code_bytes, offsets, lengths, row_bytes, c, cum, per_block,
+      a_count, planar::total_of<Total>(k, total), out, n_blocks, L);
   return cudaGetLastError();
+}
+
+template <typename Total>
+cudaError_t launch(const uint8_t* code, long long code_bytes,
+                   const long long* offsets, const long long* lengths,
+                   long long row_bytes, const long long* c,
+                   const long long* cum, int per_block, int a_count, int k,
+                   u64 total, int32_t* out, long long n_blocks, int L,
+                   cudaStream_t stream) {
+  const unsigned grid = static_cast<unsigned>(
+      (n_blocks + planar::kDecodeThreads - 1) / planar::kDecodeThreads);
+#if !defined(RC_VARIANT_PLANAR_BINARY_SEARCH)
+  // a slot table for a shared table of total 2^k, where the pairs and the
+  // slots fit the CTA's shared memory
+  if constexpr (std::is_same<Total, planar::Pow2Total>::value) {
+    const int sb = planar::slot_bytes(a_count);
+    if (!per_block && sb) {
+      const size_t pairs = (static_cast<size_t>(a_count) + 1) * sizeof(uint2);
+      int limit = 0;
+      const cudaError_t err = planar::max_smem_optin(&limit);
+      if (err != cudaSuccess) return err;
+      const size_t with_slots = pairs + (static_cast<size_t>(sb) << k);
+      if (with_slots <= static_cast<size_t>(limit))
+        return (sb == 1 ? launch_mode<Total, kSlots8>
+                        : launch_mode<Total, kSlots16>)(
+            with_slots, grid, code, code_bytes, offsets, lengths, row_bytes,
+            c, cum, per_block, a_count, k, total, out, n_blocks, L, stream);
+    }
+  }
+#endif
+  const size_t smem = planar::smem_table_bytes(per_block, a_count);
+  return (smem ? launch_mode<Total, kSmemPairs> : launch_mode<Total, kGlobal>)(
+      smem, grid, code, code_bytes, offsets, lengths, row_bytes, c, cum,
+      per_block, a_count, k, total, out, n_blocks, L, stream);
 }
 
 }  // namespace
 
-// Decode `n_blocks` rows of `row_bytes` code bytes into (n_blocks, L)
-// int32 symbols, with the table c / cum (int64; one shared, or one per
-// block when `per_block`), total 2^k for k in [1, 16] or `total` for
-// k = 0.  Returns the launch's cudaError_t.
-extern "C" int rc_planar_decode(const uint8_t* code, long long row_bytes,
+// Decode `n_blocks` payloads into (n_blocks, L) int32 symbols: block b's
+// are the lengths[b] bytes at offsets[b] of the `code_bytes` bytes at
+// `code`, or, with `offsets` and `lengths` null, the row_bytes bytes at
+// b * row_bytes.  The table c / cum (int64; one shared, or one per block
+// when `per_block`); total 2^k for k in [1, 16] or `total` for k = 0.
+// Returns the launch's cudaError_t.
+extern "C" int rc_planar_decode(const uint8_t* code, long long code_bytes,
+                                const long long* offsets,
+                                const long long* lengths, long long row_bytes,
                                 const long long* c, const long long* cum,
                                 int per_block, int a_count, int k,
                                 unsigned long long total, int32_t* out,
                                 long long n_blocks, int L,
                                 cudaStream_t stream) {
-  if (n_blocks < 1 || L < 0 || row_bytes < 0 || a_count < 1 || k < 0 ||
-      k > 16 || total < 1 || total >> 32)
+  if (n_blocks < 1 || L < 0 || row_bytes < 0 || code_bytes < 0 ||
+      a_count < 1 || k < 0 || k > 16 || total < 1 || total >> 32 ||
+      (offsets == nullptr) != (lengths == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return k ? launch<false>(code, row_bytes, c, cum, per_block, a_count, k,
-                           total, out, n_blocks, L, stream)
-           : launch<true>(code, row_bytes, c, cum, per_block, a_count, k,
-                          total, out, n_blocks, L, stream);
+  return k ? launch<planar::Pow2Total>(code, code_bytes, offsets, lengths,
+                                       row_bytes, c, cum, per_block, a_count,
+                                       k, total, out, n_blocks, L, stream)
+           : launch<planar::RawTotal>(code, code_bytes, offsets, lengths,
+                                      row_bytes, c, cum, per_block, a_count,
+                                      k, total, out, n_blocks, L, stream);
 }

@@ -16,24 +16,36 @@
 // keeps counting: a length above the capacity tells the caller to encode
 // again with more room.  The output comes zeroed from the wrapper, so the
 // row past the length reads 0.  The total is 2^k (rpt = range >> k) or
-// any u32 total (k = 0: the exact u64 division).  The table is one
-// shared (A,) / (A + 1,) pair of int64 tables or one pair per block
-// (the adaptive mode).  A symbol outside [0, A) is coded as A - 1 (the
-// plain version raises; the kernel must not read outside the table).
+// any u32 total (k = 0: the exact u64 division, by a reciprocal).  The
+// table is one shared (A,) / (A + 1,) pair of int64 tables or one pair
+// per block (the adaptive mode).  A symbol outside [0, A) is coded as
+// A - 1 (the plain version raises; the kernel must not read outside the
+// table).
 //
 // What bounds it on the H100: the chain.  One thread owns one block and
 // its L dependent transitions (each a few dozen integer operations on
-// u64, one table read); a 2^24-symbol call has 32768 threads, about 248
-// on each SM, so the kernel takes about L times the latency of one step.
-// The bytes (16 MiB of u8 symbols in, the code matrix out) would take
-// 0.02 ms at the memory's rate.  The design keeps everything of a block in
-// registers: native u64 state, the scan and the compaction fused (each
-// byte goes straight to its place in the row, four at a time as one
-// 32-bit store where the row allows: planar_step.cuh's ByteSink), and a
-// table of A <= 6143 symbols staged once per CUDA block in shared
-// memory.  The symbol reads are one
-// scalar load a step; a row's 128-byte lines stay in L1 across the
-// steps that use them.
+// u64); a 2^24-symbol call has 32768 threads, 248 an SM, so the kernel
+// takes about L times the latency of one step.  The bytes (16 MiB of u8
+// symbols in, the payloads out) would take 0.02 ms at the memory's rate.
+// The design keeps everything of a block in registers (native u64 state;
+// the scan and the compaction fused: each byte goes straight to its place
+// in the row) and shortens the step's chain
+// (scripts_torch/decode_variants.py --kernel planar_encode puts each
+// point back alone; the macros are listed in planar_device.cuh):
+// 1. Symbols and table entries ahead of the chain: the row read 16 bytes
+//    at a time (16 u8, 8 u16, 4 i32 or 2 i64 symbols; one scalar load a
+//    step where the row is not 16-byte aligned), the next chunk's load a
+//    chunk ahead, and the next symbol's (cum, c) read one step ahead, so
+//    the state's chain is only rpt, the interval and the renormalisation.
+// 2. A branch-free byte writer: a transition's bytes enter a 128-bit
+//    accumulator by funnel shifts and leave as 8-byte stores
+//    (planar_step.cuh's ByteWriter), not a loop of one byte at a time,
+//    which diverged across the warp on the byte count.
+// 3. A raw total's rpt by a multiply-high with a reciprocal computed once
+//    a launch (Divisor), not a u64 division a step.
+// 4. 128-thread CTAs, the measured choice (planar_device.cuh).
+// A shared table of A <= 6143 symbols is staged once per CTA in shared
+// memory.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -45,13 +57,12 @@ namespace {
 
 using planar::u64;
 
-template <typename Sym, bool kDiv, bool kSmem>
-__global__ void __launch_bounds__(planar::kThreads)
+template <typename Sym, typename Total, bool kSmem>
+__global__ void __launch_bounds__(planar::kEncodeThreads)
     planar_encode_kernel(const Sym* __restrict__ sym,
                          const long long* __restrict__ c,
                          const long long* __restrict__ cum, int per_block,
-                         int a_count, int k, u64 total,
-                         uint8_t* __restrict__ out,
+                         int a_count, Total tot, uint8_t* __restrict__ out,
                          long long* __restrict__ lengths, long long n_blocks,
                          int L, long long capacity) {
   extern __shared__ uint2 smem_table[];
@@ -61,32 +72,43 @@ __global__ void __launch_bounds__(planar::kThreads)
   if (b >= n_blocks) return;
   const auto table =
       planar::TableFor<kSmem>::get(smem_table, c, cum, a_count, per_block, b);
+#if defined(RC_VARIANT_PLANAR_BYTE_WRITER)
   planar::ByteSink sink = planar::byte_sink(out + b * capacity, capacity);
-  planar::encode_block<kDiv>(planar::SymbolRow<Sym>{sym + b * L, a_count}, L,
-                             table, k, total, &sink);
-  lengths[b] = sink.pos;
+#else
+  planar::ByteWriter sink = planar::byte_writer(out + b * capacity, capacity);
+#endif
+  const Sym* row = sym + b * L;
+#if defined(RC_VARIANT_PLANAR_SCALAR_SYMBOLS)
+  planar::encode_block_scalar(planar::SymbolRow<Sym>{row, a_count}, L, table,
+                              tot, &sink);
+#else
+  const bool vec = (reinterpret_cast<uintptr_t>(sym) & 15) == 0 &&
+                   (static_cast<long long>(L) * sizeof(Sym)) % 16 == 0;
+  planar::encode_block_fast(row, L, a_count, table, tot, &sink, vec);
+#endif
+  lengths[b] = sink.length();
 }
 
-template <typename Sym, bool kDiv>
+template <typename Sym, typename Total>
 cudaError_t launch(const void* sym, const long long* c, const long long* cum,
                    int per_block, int a_count, int k, u64 total, uint8_t* out,
                    long long* lengths, long long n_blocks, int L,
                    long long capacity, cudaStream_t stream) {
   const unsigned grid = static_cast<unsigned>(
-      (n_blocks + planar::kThreads - 1) / planar::kThreads);
+      (n_blocks + planar::kEncodeThreads - 1) / planar::kEncodeThreads);
   const size_t smem = planar::smem_table_bytes(per_block, a_count);
   const Sym* rows = static_cast<const Sym*>(sym);
+  const Total tot = planar::total_of<Total>(k, total);
   if (smem)
-    planar_encode_kernel<Sym, kDiv, true>
-        <<<grid, planar::kThreads, smem, stream>>>(
-            rows, c, cum, per_block, a_count, k, total, out, lengths,
-            n_blocks, L, capacity);
+    planar_encode_kernel<Sym, Total, true>
+        <<<grid, planar::kEncodeThreads, smem, stream>>>(
+            rows, c, cum, per_block, a_count, tot, out, lengths, n_blocks, L,
+            capacity);
   else
-    planar_encode_kernel<Sym, kDiv, false>
-        <<<grid, planar::kThreads, 0, stream>>>(rows, c, cum, per_block,
-                                                a_count, k, total, out,
-                                                lengths, n_blocks, L,
-                                                capacity);
+    planar_encode_kernel<Sym, Total, false>
+        <<<grid, planar::kEncodeThreads, 0, stream>>>(rows, c, cum, per_block,
+                                                a_count, tot, out, lengths,
+                                                n_blocks, L, capacity);
   return cudaGetLastError();
 }
 
@@ -96,10 +118,12 @@ cudaError_t launch_total(const void* sym, const long long* c,
                          int k, u64 total, uint8_t* out, long long* lengths,
                          long long n_blocks, int L, long long capacity,
                          cudaStream_t stream) {
-  return k ? launch<Sym, false>(sym, c, cum, per_block, a_count, k, total,
-                                out, lengths, n_blocks, L, capacity, stream)
-           : launch<Sym, true>(sym, c, cum, per_block, a_count, k, total, out,
-                               lengths, n_blocks, L, capacity, stream);
+  return k ? launch<Sym, planar::Pow2Total>(sym, c, cum, per_block, a_count,
+                                            k, total, out, lengths, n_blocks,
+                                            L, capacity, stream)
+           : launch<Sym, planar::RawTotal>(sym, c, cum, per_block, a_count, k,
+                                           total, out, lengths, n_blocks, L,
+                                           capacity, stream);
 }
 
 }  // namespace

@@ -60,10 +60,10 @@ SIGNATURES = {
     # n_blocks, block_len, capacity, stream
     "rc_planar_encode": [_P, _I, _P, _P, _I, _I, _I, _U64, _P, _P, _I64, _I,
                          _I64, _P],
-    # code, row_bytes, c, cum, per_block, a_count, k, total, out, n_blocks,
-    # block_len, stream
-    "rc_planar_decode": [_P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I64, _I,
-                         _P],
+    # code, code_bytes, offsets, lengths, row_bytes, c, cum, per_block,
+    # a_count, k, total, out, n_blocks, block_len, stream
+    "rc_planar_decode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _I, _I, _U64,
+                         _P, _I64, _I, _P],
 }
 
 

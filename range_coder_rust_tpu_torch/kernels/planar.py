@@ -17,8 +17,12 @@ advances every block's coder at once with the closed-form transition
 Both versions take
 
 * symbols ``(B, L)`` as ``uint8``, ``int16`` (u16 bits), ``int32`` or
-  ``int64`` (the encode), or the code matrix ``(B, C)`` ``uint8`` of any
-  width ``C`` (the decode);
+  ``int64`` (the encode); the decode takes the payloads where they lie:
+  a flat ``uint8`` buffer with ``offsets`` and ``lengths`` ``(B,)``
+  int64 (block ``b`` is ``lengths[b]`` bytes at ``offsets[b]``, as the
+  container holds them joined; an offset or length outside the buffer is
+  cut to it), or a code matrix ``(B, C)`` ``uint8`` of any width ``C``
+  (offsets ``b * C``, lengths ``C``);
 * the table as int64 tensors: one shared, ``c (A,)`` and ``cum (A+1,)``,
   or one per block, ``(B, A)`` and ``(B, A+1)`` (the adaptive mode);
 * the total: ``k`` for ``2**k`` (``k`` in [1, 16]) or ``total``, any u32
@@ -95,13 +99,36 @@ def _check_encode(symbols: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
 
 
 def _check_decode(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
-                  block_len: int) -> int:
-    if code.dim() != 2 or code.dtype != torch.uint8:
-        raise ValueError(f"code must be a 2-D uint8 matrix, got {code.dtype} "
-                         f"{tuple(code.shape)}")
+                  block_len: int, offsets: Optional[torch.Tensor],
+                  lengths: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """``(A, B)``; raises unless ``code`` is a ``(B, C)`` uint8 matrix
+    (``offsets`` and ``lengths`` None) or a flat uint8 buffer with
+    ``(B,)`` int64 ``offsets`` and ``lengths``, on the tables' device."""
+    if (offsets is None) != (lengths is None):
+        raise ValueError("give both offsets and lengths, or neither")
+    if offsets is None:
+        if code.dim() != 2 or code.dtype != torch.uint8:
+            raise ValueError(f"code must be a 2-D uint8 matrix, got "
+                             f"{code.dtype} {tuple(code.shape)}")
+        n_blocks = code.shape[0]
+    else:
+        if code.dim() != 1 or code.dtype != torch.uint8:
+            raise ValueError(f"flat code must be 1-D uint8, got {code.dtype} "
+                             f"{tuple(code.shape)}")
+        n_blocks = offsets.shape[0] if offsets.dim() == 1 else -1
+        if (n_blocks < 0 or offsets.dtype != torch.int64
+                or lengths.dtype != torch.int64
+                or lengths.shape != offsets.shape):
+            raise ValueError(f"offsets {offsets.dtype} "
+                             f"{tuple(offsets.shape)} and lengths "
+                             f"{lengths.dtype} {tuple(lengths.shape)} must "
+                             f"be (B,) int64")
+        if offsets.device != code.device or lengths.device != code.device:
+            raise ValueError("offsets, lengths and code must be on one "
+                             "device")
     if block_len < 0:
         raise ValueError(f"block_len {block_len} must be >= 0")
-    return _check_tables(c, cum, code.shape[0], code.device)
+    return _check_tables(c, cum, n_blocks, code.device), n_blocks
 
 
 # ----- the plain versions -------------------------------------------------
@@ -209,13 +236,35 @@ def _decode_scan(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
     return out.T
 
 
+def payload_rows(code: torch.Tensor, offsets: torch.Tensor,
+                 lengths: torch.Tensor) -> torch.Tensor:
+    """The flat form's payloads as a zero-padded ``(B, C)`` uint8 matrix,
+    ``C`` the longest payload: offsets and lengths cut to the buffer as
+    the kernel cuts them (an offset outside ``[0, N]`` reads as an empty
+    payload)."""
+    n = code.numel()
+    bad = (offsets < 0) | (offsets > n)
+    off = torch.where(bad, 0, offsets)
+    ln = torch.minimum(torch.where(bad, 0, lengths).clamp(min=0), n - off)
+    col = torch.arange(int(ln.max()) if ln.numel() else 0, device=code.device)
+    keep = col < ln[:, None]
+    rows = torch.zeros(keep.shape, dtype=torch.uint8, device=code.device)
+    rows[keep] = code[(off[:, None] + col)[keep]]
+    return rows
+
+
 def planar_decode_plain(code: torch.Tensor, c: torch.Tensor,
                         cum: torch.Tensor, *, k: Optional[int] = None,
-                        total: Optional[int] = None, block_len: int
+                        total: Optional[int] = None, block_len: int,
+                        offsets: Optional[torch.Tensor] = None,
+                        lengths: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """The decode in plain PyTorch, one Python iteration a symbol."""
-    _check_decode(code, c, cum, block_len)
+    """The decode in plain PyTorch, one Python iteration a symbol (the flat
+    form through :func:`payload_rows`)."""
+    _check_decode(code, c, cum, block_len, offsets, lengths)
     k, total = _total_of(k, total)
+    if offsets is not None:
+        code = payload_rows(code, offsets, lengths)
     if k:
         return _decode_scan(
             code, c, cum, block_len,
@@ -267,32 +316,41 @@ def planar_encode_blocks(symbols: torch.Tensor, c: torch.Tensor,
 
 def planar_decode_blocks(code: torch.Tensor, c: torch.Tensor,
                          cum: torch.Tensor, *, k: Optional[int] = None,
-                         total: Optional[int] = None, block_len: int
+                         total: Optional[int] = None, block_len: int,
+                         offsets: Optional[torch.Tensor] = None,
+                         lengths: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
-    """Decode ``(B, C)`` code rows into ``(B, block_len)`` int32 symbols:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
-    Like the reference, a payload carries no end marker: the container
-    gives the symbol count."""
+    """Decode ``B`` payloads (a ``(B, C)`` code matrix, or a flat buffer
+    with ``offsets`` and ``lengths``) into ``(B, block_len)`` int32
+    symbols: the CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor.  Like the reference, a payload carries no end marker: the
+    container gives the symbol count."""
     if code.device.type == "cpu":
         return planar_decode_plain(code, c, cum, k=k, total=total,
-                                   block_len=block_len)
+                                   block_len=block_len, offsets=offsets,
+                                   lengths=lengths)
     if code.device.type != "cuda":
         raise ValueError(f"no planar decode for device {code.device}")
-    a = _check_decode(code, c, cum, block_len)
+    a, B = _check_decode(code, c, cum, block_len, offsets, lengths)
     k, total = _total_of(k, total)
     code, c, cum = code.contiguous(), c.contiguous(), cum.contiguous()
-    B, C = code.shape
     out = torch.empty((B, block_len), dtype=torch.int32, device=code.device)
     if B == 0:
         return out
+    if offsets is None:
+        row_bytes, offs_ptr, lens_ptr = code.shape[1], None, None
+    else:
+        offsets, lengths = offsets.contiguous(), lengths.contiguous()
+        row_bytes, offs_ptr, lens_ptr = (0, offsets.data_ptr(),
+                                         lengths.data_ptr())
     from ._build import check, library
 
     with torch.cuda.device(code.device):
         stream = torch.cuda.current_stream(code.device).cuda_stream
         err = library().rc_planar_decode(
-            code.data_ptr(), C, c.data_ptr(), cum.data_ptr(),
-            int(c.dim() == 2), a, k, total, out.data_ptr(), B, block_len,
-            stream)
+            code.data_ptr(), code.numel(), offs_ptr, lens_ptr, row_bytes,
+            c.data_ptr(), cum.data_ptr(), int(c.dim() == 2), a, k, total,
+            out.data_ptr(), B, block_len, stream)
     check(err, "planar decode kernel")
     planar_decode_blocks.launches += 1
     return out

@@ -256,11 +256,15 @@ def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device, *,
 #: from device memory), a raw total, a total of 1 (a one-symbol
 #: alphabet: rpt is the whole range), per-block tables at k = 12, a forced
 #: capacity overflow, an odd L with a capacity that is not a multiple of 4
-#: (byte stores), and a decode row width that is not one; every case's
-#: encode also runs on its symbols as int32 and int64 rows
+#: (byte stores), a decode row width that is not one, and B = 300 blocks
+#: (not a multiple of the 256-thread CTA) of odd L; every case's encode
+#: also runs on its symbols as int32 and int64 rows, and every decode also
+#: on the flat form (:func:`flat_payloads`: the payloads at odd offsets,
+#: junk between them)
 PLANAR_CASES = ["k16_shared_u8_L512", "A4096_u16", "A65536_device_table",
                 "raw_total", "total_1", "per_block_k12",
-                "capacity_overflow", "odd_L63_cap199", "decode_width_1021"]
+                "capacity_overflow", "odd_L63_cap199", "decode_width_1021",
+                "flat_odd_offsets"]
 
 
 def planar_case(name: str) -> dict:
@@ -303,6 +307,9 @@ def planar_case(name: str) -> dict:
         L = 500
         values = zipf(B * L, a, 28, alpha=0.6)
         width = 1021
+    elif name == "flat_odd_offsets":
+        B, L = 300, 61
+        values = zipf(B * L, a, 29)
     else:
         raise KeyError(name)
     values = values.reshape(B, L)
@@ -332,14 +339,36 @@ def planar_case(name: str) -> dict:
             "width": width}
 
 
+def flat_payloads(code: torch.Tensor, lengths: torch.Tensor, seed: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rows of a ``(B, C)`` code matrix as the decode's flat form:
+    each row's first ``min(length, C)`` bytes, joined from byte 1 on with
+    0 to 3 junk bytes (0xA5) before each and after the last, so the
+    payloads start at odd and even offsets and a read past a payload's end
+    would find junk.  Returns ``(flat uint8, offsets, lengths)`` (int64)
+    on the CPU."""
+    rows = code.cpu().numpy()
+    lens = np.minimum(lengths.cpu().numpy(), rows.shape[1]).astype(np.int64)
+    gaps = np.random.default_rng(seed).integers(0, 4, lens.size + 1)
+    gaps[0] = 1
+    offs = np.cumsum(gaps[:-1] + np.concatenate([[0], lens[:-1]]))
+    flat = np.full(int(offs[-1] + lens[-1] + gaps[-1]), 0xA5, np.uint8)
+    for row, off, n in zip(rows, offs, lens):
+        flat[off : off + n] = row[:n]
+    return (torch.from_numpy(flat), torch.from_numpy(offs),
+            torch.from_numpy(lens))
+
+
 def planar_vs_plain(name: str, device) -> dict:
     """Encode a planar case with the kernel on ``device`` (its rows at the
     codec's width, then widened to int32 and int64) and the plain version
     on the CPU, then decode the plain code matrix (cut to the case's row
-    width) both ways.  Returns ``{"planar_encode": max_abs_err
+    width) both ways, in the matrix form and in the flat form
+    (:func:`flat_payloads`).  Returns ``{"planar_encode": max_abs_err
     of code bytes and lengths, "planar_decode": max_abs_err of the
     symbols}``.  Raises ``AssertionError`` unless the plain decode gives
-    the symbols back where no row was cut."""
+    the symbols back where no row was cut, and the two forms' plain
+    decodes agree."""
     case = planar_case(name)
     c, cum = torch.from_numpy(case["c"]), torch.from_numpy(case["cum"])
     rows = torch.from_numpy(case["rows"])
@@ -366,5 +395,15 @@ def planar_vs_plain(name: str, device) -> dict:
     if not np.array_equal(dec_p.numpy()[whole], case["values"][whole]):
         raise AssertionError(f"{name}: plain decode does not give the "
                              "symbols back")
+    flat, offs, lens = flat_payloads(code, len_p, PLANAR_CASES.index(name))
+    flat_k = kernels.planar_decode_blocks(
+        flat.to(device), c.to(device), cum.to(device), block_len=L,
+        offsets=offs.to(device), lengths=lens.to(device), **kw)
+    flat_p = kernels.planar_decode_blocks(flat, c, cum, block_len=L,
+                                          offsets=offs, lengths=lens, **kw)
+    if not torch.equal(flat_p, dec_p):
+        raise AssertionError(f"{name}: the flat form's plain decode is not "
+                             "the matrix form's")
     return {"planar_encode": enc_err,
-            "planar_decode": _max_abs(dec_k, dec_p)}
+            "planar_decode": max(_max_abs(dec_k, dec_p),
+                                 _max_abs(flat_k, flat_p))}

@@ -47,7 +47,7 @@ def test_trace_to_writes_a_trace_file(tmp_path):
                 "rans16.parse", "rans16.decode_kernel"}),
     ("planar", {"planar.histogram", "planar.upload", "planar.encode_steps",
                 "planar.d2h", "planar.payloads", "planar.pack",
-                "planar.payload_matrix", "planar.decode_steps"})])
+                "planar.payload_bytes", "planar.decode_steps"})])
 def test_codec_phases_are_named_regions(profile, regions):
     data = zipf(3000, 50, 7, dtype=np.uint8)
     cfg = (rt.CodecConfig(profile="rans16", block_len=16, group_lanes=128)
