@@ -1,0 +1,8 @@
+"""The device's idle share inside ``api.decode``: 1 - the union of device
+operations over the calls' wall (%)."""
+
+from rc_bench.readers import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "decode")
