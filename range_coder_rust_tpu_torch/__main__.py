@@ -82,7 +82,7 @@ def _cmd_decode(args) -> int:
     blob = open(args.file, "rb").read()
     from . import format as fmt
 
-    cont = fmt.unpack(blob, verify_checksums=False)
+    cont = fmt.unpack(blob, verify_checksums=False, device=args.device)
     t0 = time.time()
     if args.count is not None:
         from .api import decode_range

@@ -94,6 +94,7 @@ def encode_adaptive(
         tables_c=np.concatenate(tables),
         per_block_tables=True,
         with_checksums=with_checksums,
+        device=device,
     )
 
 
@@ -101,7 +102,8 @@ def decode_adaptive(blob: bytes, *, verify_checksums: bool = True,
                     device="cuda") -> np.ndarray:
     """Decode a per-block-tables container (int32 symbols)."""
     return decode_adaptive_container(
-        fmt.unpack(blob, verify_checksums=verify_checksums), device=device)
+        fmt.unpack(blob, verify_checksums=verify_checksums, device=device),
+        device=device)
 
 
 def decode_adaptive_container(cont: fmt.Container, device="cuda"

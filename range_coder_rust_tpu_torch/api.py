@@ -18,18 +18,19 @@ Orchestration is host-side and thin: cut the input into ``(B, L)``
 blocks, run the device coder over chunks of ``chunk_symbols``, trim the
 payloads by their lengths, and pack.  A block that overflows its capacity
 is encoded again with twice the room, never cut silently.  The planar
-phases run in named profiler regions (``planar.histogram``,
-``planar.upload``, ``planar.encode_steps`` / ``planar.decode_steps``,
-``planar.d2h``, ``planar.payloads``, ``planar.payload_bytes``,
-``planar.pack``; :func:`.utils.profiling.annotate`), as rans16's do in
-:mod:`.rans_codec`.
+phases run in named profiler regions (``planar.histogram`` with
+``planar.table`` inside, ``planar.pad``, ``planar.upload``,
+``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h``,
+``planar.payloads``, ``planar.payload_bytes``, ``planar.pack``;
+:func:`.utils.profiling.annotate`), as rans16's do in :mod:`.rans_codec`
+and the container's (``format.unpack``, ``format.crc32``) in
+:mod:`.format`.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-import zlib
 from typing import Optional
 
 import numpy as np
@@ -39,7 +40,7 @@ from . import format as fmt
 from . import rans_codec
 from .blocks import (decode_payloads, default_capacity, encode_blocks,
                      encode_blocks_div, payload_buffers, upload_rows)
-from .errors import ChecksumMismatch, ConfigError, ZeroFrequency
+from .errors import ConfigError, ZeroFrequency
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
 
@@ -200,7 +201,8 @@ def encode(
             counts = np.bincount(symbols, minlength=a).astype(np.uint64)
             if n == 0:
                 counts[0] = 1  # an empty input: any valid table
-            table = build_table_pow2(counts, config.k)
+            with annotate("planar.table", device):
+                table = build_table_pow2(counts, config.k)
     else:
         if table.alphabet < a:
             raise ConfigError(
@@ -221,7 +223,7 @@ def encode(
             device=device)
 
     L = config.block_len
-    with annotate("planar.upload", device):  # the host padding
+    with annotate("planar.pad", device):
         rows = _planar_rows(symbols, int(np.argmax(table.c)), L)
     rows_per_chunk = max(1, config.chunk_symbols // L)
     capacity = default_capacity(L, table.k)
@@ -241,6 +243,7 @@ def encode(
             tables_c=table.c,
             per_block_tables=False,
             with_checksums=config.with_checksums,
+            device=device,
         )
 
 
@@ -284,6 +287,7 @@ def _encode_raw(symbols: np.ndarray, a: int, config: CodecConfig,
         tables_c=c,
         per_block_tables=False,
         with_checksums=config.with_checksums,
+        device=device,
     )
 
 
@@ -296,7 +300,8 @@ def decode(blob: bytes, *, verify_checksums: bool = True,
     Raises typed errors on malformed input (InvalidHeader,
     ChecksumMismatch)."""
     return _decode_container(
-        fmt.unpack(blob, verify_checksums=verify_checksums), device)
+        fmt.unpack(blob, verify_checksums=verify_checksums, device=device),
+        device)
 
 
 def decode_range(blob: bytes, start: int, count: int, *,
@@ -310,7 +315,7 @@ def decode_range(blob: bytes, start: int, count: int, *,
     parsed but never decoded.  Within a rans16 group it decodes only the
     step intervals the range needs, from the nearest sync point when the
     container has them (``CodecConfig.sync_tiles``)."""
-    cont = fmt.unpack(blob, verify_checksums=False)
+    cont = fmt.unpack(blob, verify_checksums=False, device=device)
     n = cont.n_symbols
     if start < 0 or count < 0 or start + count > n:
         raise ConfigError(
@@ -321,10 +326,7 @@ def decode_range(blob: bytes, start: int, count: int, *,
     b0 = start // span
     b1 = -(-(start + count) // span)
     if verify_checksums and cont.checksums is not None:
-        for i in range(b0, b1):
-            actual = zlib.crc32(cont.payloads[i])
-            if actual != int(cont.checksums[i]):
-                raise ChecksumMismatch(i, int(cont.checksums[i]), actual)
+        fmt.verify(cont, b0, b1, device)
     if cont.profile == "rans16":
         return _decode_range_rans16(cont, start, count, b0, b1, device)
     sub = dataclasses.replace(
@@ -343,17 +345,23 @@ def decode_range(blob: bytes, start: int, count: int, *,
 def _decode_range_rans16(cont: fmt.Container, start: int, count: int,
                          b0: int, b1: int, device) -> np.ndarray:
     """Tile random access: per touched group, decode only the step
-    intervals its lanes need (``rans_codec.decode_tile_range``), each
-    parse and table upload made once per group."""
+    intervals its lanes need (``rans_codec.decode_tile_range``); the
+    touched groups' payloads are parsed, and their tables uploaded, once
+    a read."""
     g, L = cont.group_lanes, cont.block_len
     span = L * g
     out = np.empty(count, np.int32)
     per_group = cont.per_block_tables
     tables = np.asarray(cont.tables_c)
     # the shared table, or the touched groups' tables, uploaded once
-    cums = rans_codec.cum_table(rans_codec._cums_of(
-        tables[b0:b1] if per_group else tables), device)
-    for bidx in range(b0, b1):
+    with annotate("rans16.table", device):
+        cums = rans_codec.cum_table(rans_codec._cums_of(
+            tables[b0:b1] if per_group else tables), device)
+    with annotate("rans16.parse", device):
+        parses = [rans_codec._parse_payload(cont.payloads[bidx], L, g,
+                                            full=True)
+                  for bidx in range(b0, b1)]
+    for bidx, parsed in zip(range(b0, b1), parses):
         gbase = bidx * span
         a = max(start, gbase)
         b = min(start + count, gbase + span)
@@ -361,8 +369,6 @@ def _decode_range_rans16(cont: fmt.Container, start: int, count: int,
         cum = cums[bidx - b0] if per_group else cums
         la, sa = divmod(a - gbase, L)
         lb, sb = divmod(b - gbase - 1, L)
-        parsed = rans_codec._parse_payload(cont.payloads[bidx], L, g,
-                                           full=True)
         if lb > la + 1:
             intervals = [(0, L, None)]  # the middle lanes need every step
         elif lb == la:

@@ -42,6 +42,12 @@ The rans16 profile (flag bit2) reuses the same container with payload =
 one interleaved group stream per "block" (rans.py layout: 8-byte-per-lane
 state preamble + halfword region section).  ``k`` must be 16; per-block mode
 stores one table PER GROUP (the adaptive rans16 profile).
+
+``unpack`` runs in a named profiler region ``format.unpack``, and every
+CRC32 pass (``pack``'s checksums, ``unpack``'s verify, a range read's
+check of the units it touches: :func:`verify`) in one ``format.crc32``
+region a call (:func:`.utils.profiling.annotate`; ``device`` gives them
+an NVTX range on CUDA).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from typing import List, Optional
 import numpy as np
 
 from .errors import ChecksumMismatch, InvalidHeader
+from .utils.profiling import annotate
 
 MAGIC = b"RCT1"
 #: container version.  2 = round-3 rans16 payload layout (per-tile region
@@ -114,8 +121,10 @@ def pack(
     with_checksums: bool = True,
     profile: str = "planar",
     group_lanes: int = 0,
+    device=None,
 ) -> bytes:
-    """Assemble a container from per-block payloads and table(s)."""
+    """Assemble a container from per-block payloads and table(s).
+    ``device`` names where the caller codes, for the profiler regions."""
     b = len(payloads)
     if b < 1:
         raise ValueError("need at least one block")
@@ -150,16 +159,48 @@ def pack(
     out += lengths.tobytes()
     out += np.ascontiguousarray(tables_c, dtype=_table_dtype(k)).tobytes()
     if with_checksums:
-        crcs = np.array([zlib.crc32(p) for p in payloads], dtype="<u4")
-        out += crcs.tobytes()
+        out += crc32s(payloads, device).tobytes()
     for p in payloads:
         out += p
     return bytes(out)
 
 
-def unpack(blob: bytes, *, verify_checksums: bool = True) -> Container:
+def crc32s(payloads: List[bytes], device=None) -> np.ndarray:
+    """The CRC32 of each payload, ``<u4``: the one CRC32 loop of the
+    container format, in one ``format.crc32`` region."""
+    with annotate("format.crc32", device):
+        return np.array([zlib.crc32(p) for p in payloads], dtype="<u4")
+
+
+def verify(cont: Container, lo: int = 0, hi: Optional[int] = None,
+           device=None) -> None:
+    """Check units ``[lo, hi)`` (default: all) of a container with
+    checksums against their stored CRC32s; raises
+    :class:`ChecksumMismatch` for the first that differs."""
+    hi = cont.n_blocks if hi is None else hi
+    actual = crc32s(cont.payloads[lo:hi], device)
+    bad = np.flatnonzero(actual != cont.checksums[lo:hi])
+    if bad.size:
+        i = lo + int(bad[0])
+        raise ChecksumMismatch(i, int(cont.checksums[i]),
+                               int(actual[i - lo]))
+
+
+def unpack(blob: bytes, *, verify_checksums: bool = True,
+           device=None) -> Container:
     """Parse + validate a container (typed errors, never panics —
-    SURVEY.md §5 failure-detection requirement)."""
+    SURVEY.md §5 failure-detection requirement).  ``device`` names where
+    the caller decodes, for the profiler regions."""
+    with annotate("format.unpack", device):
+        cont = _parse(blob)
+        if verify_checksums and cont.checksums is not None:
+            verify(cont, device=device)
+        return cont
+
+
+def _parse(blob: bytes) -> Container:
+    """The header, lengths, tables, checksums and payload slices of a
+    container, validated."""
     if len(blob) < HEADER_BYTES:
         raise InvalidHeader(f"container too short: {len(blob)} bytes")
     magic, version, flags, k, glog, alphabet, block_len, n_symbols, b = _HEADER.unpack(
@@ -240,12 +281,6 @@ def unpack(blob: bytes, *, verify_checksums: bool = True) -> Container:
         payloads.append(take(int(ln), f"payload {i}"))
     if off != len(blob):
         raise InvalidHeader(f"{len(blob) - off} trailing bytes after payloads")
-
-    if has_crc and verify_checksums:
-        for i, p in enumerate(payloads):
-            actual = zlib.crc32(p)
-            if actual != int(checksums[i]):
-                raise ChecksumMismatch(i, int(checksums[i]), actual)
 
     return Container(
         k=k,

@@ -27,10 +27,11 @@ A full decode starts from the preamble and skips the sync states.
 The kernels (``kernels/rans_encode.py``, ``kernels/rans_decode.py``) run
 whole groups; this module batches groups, moves the data to and from the
 device, and assembles and parses the payloads.  Each phase runs in a
-named profiler region (``rans16.histogram``, ``rans16.upload``,
-``rans16.encode_kernel`` / ``rans16.decode_kernel``, ``rans16.d2h``,
-``rans16.payloads``, ``rans16.parse``, ``rans16.pack``;
-:func:`.utils.profiling.annotate`).
+named profiler region (``rans16.histogram``, ``rans16.table``,
+``rans16.pad``, ``rans16.upload``, ``rans16.encode_kernel`` /
+``rans16.decode_kernel``, ``rans16.d2h``, ``rans16.payloads``,
+``rans16.parse``, ``rans16.pack``; :func:`.utils.profiling.annotate`),
+once a call or a device batch, never once a payload.
 """
 
 from __future__ import annotations
@@ -194,12 +195,13 @@ def encode_groups(symbols, table, block_len: int, group_lanes: int = None,
         raise ConfigError(f"bad group geometry ({n_rows}, {L})")
     NG = n_rows // g
     tile, NT = _tile_geometry(L, g)
-    if not isinstance(table, list):  # Pow2Table is a NamedTuple
-        cums = cum_table(table.cum, device)
-    else:
-        if len(table) != NG:
-            raise ConfigError(f"{len(table)} tables for {NG} groups")
-        cums = cum_table(np.stack([t.cum for t in table]), device)
+    with annotate("rans16.table", device):
+        if not isinstance(table, list):  # Pow2Table is a NamedTuple
+            cums = cum_table(table.cum, device)
+        else:
+            if len(table) != NG:
+                raise ConfigError(f"{len(table)} tables for {NG} groups")
+            cums = cum_table(np.stack([t.cum for t in table]), device)
     n_sync = n_syncs(NT, sync_tiles)
     hdr = np.uint32(NT | (_SYNC_FLAG if n_sync else 0)).tobytes()
     if n_sync:
@@ -292,7 +294,8 @@ def decode_groups(payloads: List[bytes], table_c: np.ndarray, block_len: int,
     g = group_lanes if group_lanes else G
     NG = len(payloads)
     a_count = int(table_c.shape[-1])
-    cums = cum_table(_cums_of(table_c), device)
+    with annotate("rans16.table", device):
+        cums = cum_table(_cums_of(table_c), device)
     out = np.empty((NG * g, block_len), _np_dtype(a_count))
     gpc = _groups_per_call(block_len, g)
     for start in range(0, NG, gpc):
@@ -362,7 +365,8 @@ def decode_tile_range(payload, table_c: np.ndarray, block_len: int,
     group parse and upload them once."""
     g = group_lanes if group_lanes else G
     if parsed is None:
-        parsed = _parse_payload(payload, block_len, g, full=True)
+        with annotate("rans16.parse", device):
+            parsed = _parse_payload(payload, block_len, g, full=True)
     sizes, pre6, region, sync_t, sync6 = parsed
     NT = sizes.shape[0]
     tile = block_len // NT
@@ -380,15 +384,20 @@ def decode_tile_range(payload, table_c: np.ndarray, block_len: int,
     region_hw = np.frombuffer(region, "<i2")[off_hw : off_hw + n_hw]
     a_count = int(table_c.shape[-1])
     if cum is None:
-        cum = cum_table(_cums_of(table_c), device)
+        with annotate("rans16.table", device):
+            cum = cum_table(_cums_of(table_c), device)
     out_np = _np_dtype(a_count)
-    sym = rans_decode_tiled(
-        _states_tensor([states6], g, device),
-        torch.from_numpy(region_hw.copy()).to(device),
-        torch.tensor([0, n_hw], dtype=torch.int64, device=device), cum,
-        group_lanes=g, block_len=nt_sub * tile, a_count=a_count,
-        out_dtype=_TORCH_OUT[out_np])
-    rows = sym.cpu().numpy().view(out_np).astype(np.int32)
+    with annotate("rans16.upload", device):
+        states = _states_tensor([states6], g, device)
+        region_dev = torch.from_numpy(region_hw.copy()).to(device)
+        grp_off = torch.tensor([0, n_hw], dtype=torch.int64, device=device)
+    with annotate("rans16.decode_kernel", device):
+        sym = rans_decode_tiled(
+            states, region_dev, grp_off, cum, group_lanes=g,
+            block_len=nt_sub * tile, a_count=a_count,
+            out_dtype=_TORCH_OUT[out_np])
+    with annotate("rans16.d2h", device):
+        rows = sym.cpu().numpy().view(out_np).astype(np.int32)
     return rows, t0 * tile
 
 
@@ -451,15 +460,18 @@ def encode(
             counts = _histogram_groups(rows, alphabet, ng)
             if n == 0:
                 counts[:] = 1
-            tables = [build_table_pow2(c, 16) for c in counts]
+            with annotate("rans16.table", device):
+                tables = [build_table_pow2(c, 16) for c in counts]
         payloads = encode_groups(rows, tables, L, g, sync_tiles=sync_tiles,
                                  device=device)
         tables_c = np.stack([t.c for t in tables])
     else:
         if table is None:
             with annotate("rans16.histogram", device):
-                table = build_table_pow2(_host_counts(narrow, alphabet), 16)
-        with annotate("rans16.upload", device):  # the host padding
+                counts = _host_counts(narrow, alphabet)
+                with annotate("rans16.table", device):
+                    table = build_table_pow2(counts, 16)
+        with annotate("rans16.pad", device):
             rows = _padded_rows(narrow, int(np.argmax(table.c)), ng * g, L)
         payloads = encode_groups(rows, table, L, g, sync_tiles=sync_tiles,
                                  device=device)
@@ -476,6 +488,7 @@ def encode(
             with_checksums=with_checksums,
             profile="rans16",
             group_lanes=g,
+            device=device,
         )
 
 
@@ -546,6 +559,7 @@ def _encode_chunked(
         with_checksums=with_checksums,
         profile="rans16",
         group_lanes=g,
+        device=device,
     )
 
 

@@ -21,8 +21,10 @@ warm-up round trip (kernel build, allocator), each direction runs
    union of those events' intervals over the call's wall time.  Host ops
    such as ``aten::to`` are not summed: the copies they issue are already
    device events of their own.  The codec's named regions
-   (``rans16.*``, ``planar.*``; ``utils.profiling.annotate``) are listed
-   with their host wall, summed over their calls.
+   (``rans16.*``, ``planar.*``, and the container's ``format.unpack`` and
+   ``format.crc32``; ``utils.profiling.annotate``) are listed with their
+   host wall, summed over their calls; a nested region's wall is also in
+   the region around it.
 
 Every line carries the card's name and power limit.  It imports no jax.
 """
@@ -55,7 +57,7 @@ def top_self_time(fn, top: int):
 
 
 #: name prefixes of the codec's profiler regions
-REGIONS = ("rans16.", "planar.")
+REGIONS = ("rans16.", "planar.", "format.")
 
 
 def device_time(fn):
