@@ -82,7 +82,8 @@ def _cmd_decode(args) -> int:
     blob = open(args.file, "rb").read()
     from . import format as fmt
 
-    cont = fmt.unpack(blob, verify_checksums=False, device=args.device)
+    cont = fmt.unpack(blob, verify_checksums=False, device=args.device,
+                      copy=False)
     t0 = time.time()
     if args.count is not None:
         from .api import decode_range
@@ -119,7 +120,7 @@ def _cmd_inspect(args) -> int:
     from . import format as fmt
 
     blob = open(args.file, "rb").read()
-    cont = fmt.unpack(blob, verify_checksums=False)
+    cont = fmt.unpack(blob, verify_checksums=False, copy=False)
     payload = int(cont.lengths.sum())
     print(json.dumps({
         "k": cont.k,

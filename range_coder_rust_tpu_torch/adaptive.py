@@ -102,7 +102,8 @@ def decode_adaptive(blob: bytes, *, verify_checksums: bool = True,
                     device="cuda") -> np.ndarray:
     """Decode a per-block-tables container (int32 symbols)."""
     return decode_adaptive_container(
-        fmt.unpack(blob, verify_checksums=verify_checksums, device=device),
+        fmt.unpack(blob, verify_checksums=verify_checksums, device=device,
+                   copy=False),
         device=device)
 
 

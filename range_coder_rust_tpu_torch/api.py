@@ -16,8 +16,11 @@ from rans16 for alphabets over 1023 symbols.
 
 Orchestration is host-side and thin: cut the input into ``(B, L)``
 blocks, run the device coder over chunks of ``chunk_symbols``, trim the
-payloads by their lengths, and pack.  A block that overflows its capacity
-is encoded again with twice the room, never cut silently.  The planar
+payloads by their lengths, and pack.  A block that overflows its
+capacity is encoded again with twice the room, never cut silently.
+Decodes and reads parse the container in place (``fmt.unpack(...,
+copy=False)``): the payloads stay in the blob, and each device call
+uploads its slice of the payload area.  The planar
 phases run in named profiler regions (``planar.histogram`` with
 ``planar.table`` inside, ``planar.pad``, ``planar.upload``,
 ``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h``,
@@ -300,7 +303,8 @@ def decode(blob: bytes, *, verify_checksums: bool = True,
     Raises typed errors on malformed input (InvalidHeader,
     ChecksumMismatch)."""
     return _decode_container(
-        fmt.unpack(blob, verify_checksums=verify_checksums, device=device),
+        fmt.unpack(blob, verify_checksums=verify_checksums, device=device,
+                   copy=False),
         device)
 
 
@@ -315,7 +319,7 @@ def decode_range(blob: bytes, start: int, count: int, *,
     parsed but never decoded.  Within a rans16 group it decodes only the
     step intervals the range needs, from the nearest sync point when the
     container has them (``CodecConfig.sync_tiles``)."""
-    cont = fmt.unpack(blob, verify_checksums=False, device=device)
+    cont = fmt.unpack(blob, verify_checksums=False, device=device, copy=False)
     n = cont.n_symbols
     if start < 0 or count < 0 or start + count > n:
         raise ConfigError(

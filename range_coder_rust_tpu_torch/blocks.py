@@ -17,11 +17,13 @@ from :mod:`.kernels.planar` under their reference names.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .format import PayloadArea
 from .kernels.planar import (compact_emissions, encode_scan, encode_scan_div,
                              planar_decode_blocks, planar_encode_blocks)
 
@@ -92,15 +94,27 @@ def decode_blocks_div(code: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
 def payload_buffers(payloads, lengths, device
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A container's payloads as the decode takes them where they lie:
-    ``(code, offsets, lengths)`` on ``device``, the payloads joined into
-    one flat uint8 buffer (one host copy, one upload) and each block's
-    offset and length in it (int64)."""
+    ``(code, offsets, lengths)`` on ``device``, one flat uint8 buffer
+    (one upload) and each block's offset and length in it (int64).
+
+    ``payloads`` is a :class:`.format.PayloadArea` (the api's in-place
+    parse: its area is the buffer, uploaded as it lies in the blob) or a
+    list of byte strings (joined into the buffer, one host copy)."""
     lens = np.asarray(lengths, np.int64)
-    offs = np.zeros(lens.size, np.int64)
-    np.cumsum(lens[:-1], out=offs[1:])
-    flat = np.frombuffer(bytearray().join(payloads), np.uint8)
-    return (torch.from_numpy(flat).to(device),
-            torch.from_numpy(offs).to(device),
+    if isinstance(payloads, PayloadArea):
+        offs = payloads.offsets[:-1]
+        with warnings.catch_warnings():
+            # the area is a read-only view of the blob: the tensor over it
+            # is only read, by the H2D copy or the plain decode
+            warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                    "writable", UserWarning)
+            flat = torch.from_numpy(np.frombuffer(payloads.area, np.uint8))
+    else:
+        offs = np.zeros(lens.size, np.int64)
+        np.cumsum(lens[:-1], out=offs[1:])
+        flat = torch.from_numpy(
+            np.frombuffer(bytearray().join(payloads), np.uint8))
+    return (flat.to(device), torch.from_numpy(offs).to(device),
             torch.from_numpy(lens).to(device))
 
 

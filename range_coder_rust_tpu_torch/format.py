@@ -43,6 +43,14 @@ one interleaved group stream per "block" (rans.py layout: 8-byte-per-lane
 state preamble + halfword region section).  ``k`` must be 16; per-block mode
 stores one table PER GROUP (the adaptive rans16 profile).
 
+``unpack`` parses a container in place: the payloads stay where they lie
+in the blob, one read-only view of the payload area and the payloads'
+offsets in it (:class:`PayloadArea`), and only the public form
+(``copy=True``, the default) copies them out as ``bytes``, counted by
+:func:`copied_payload_bytes`.  The api's decodes and reads take the
+in-place form (``copy=False``) and slice the area only where they need a
+payload.
+
 ``unpack`` runs in a named profiler region ``format.unpack``, and every
 CRC32 pass (``pack``'s checksums, ``unpack``'s verify, a range read's
 check of the units it touches: :func:`verify`) in one ``format.crc32``
@@ -52,8 +60,11 @@ an NVTX range on CUDA).
 
 from __future__ import annotations
 
+import dataclasses
+import operator
 import struct
 import zlib
+from collections.abc import Iterator, Sequence
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -81,10 +92,66 @@ FLAG_RAW_TOTAL = 1 << 3
 _HEADER = struct.Struct("<4sBBBBIIQI")  # through block count B
 HEADER_BYTES = _HEADER.size
 
+#: payload bytes ``unpack`` has copied out of blobs (its public form)
+_copied_payload_bytes = 0
+
+
+def copied_payload_bytes() -> int:
+    """Payload bytes ``unpack`` has copied out of blobs so far: the
+    public form's ``bytes`` payloads; the in-place parse copies none."""
+    return _copied_payload_bytes
+
+
+def reset_copied_payload_bytes() -> None:
+    global _copied_payload_bytes
+    _copied_payload_bytes = 0
+
+
+class PayloadArea(Sequence):
+    """A container's payloads where they lie: one read-only ``memoryview``
+    of the payload area (``area``) and the ``(B + 1,)`` int64 offsets of
+    the payloads in it (``offsets``: 0, then the cumulative lengths).
+
+    Indexing gives payload ``i`` as a ``memoryview`` slice; a slice gives
+    the area of those payloads, its offsets rebased to its first.  No
+    payload byte is copied, and no object is made a payload until one is
+    asked for."""
+
+    __slots__ = ("area", "offsets")
+
+    def __init__(self, area: memoryview, offsets: np.ndarray):
+        self.area = area
+        self.offsets = offsets
+
+    def __len__(self) -> int:
+        return self.offsets.size - 1
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            lo, hi, step = i.indices(len(self))
+            if step != 1:
+                raise ValueError("a payload area slices with step 1 only")
+            hi = max(lo, hi)
+            a, b = int(self.offsets[lo]), int(self.offsets[hi])
+            return PayloadArea(self.area[a:b], self.offsets[lo : hi + 1] - a)
+        i = operator.index(i)
+        if i < 0:
+            i += len(self)
+        if not 0 <= i < len(self):
+            raise IndexError("payload index out of range")
+        return self.area[int(self.offsets[i]) : int(self.offsets[i + 1])]
+
+    def __iter__(self) -> Iterator[memoryview]:
+        offs = self.offsets.tolist()
+        area = self.area
+        return (area[a:b] for a, b in zip(offs, offs[1:]))
+
 
 @dataclass(frozen=True)
 class Container:
-    """Parsed container: header fields + raw sections."""
+    """Parsed container: header fields + raw sections.  ``payloads`` is
+    a list of ``bytes`` from the public ``unpack``, a :class:`PayloadArea`
+    over the blob from ``unpack(..., copy=False)``."""
 
     k: int
     alphabet: int
@@ -94,7 +161,7 @@ class Container:
     tables_c: np.ndarray  # shared: (A,) uint32; per-block: (B, A) uint32
     per_block_tables: bool
     checksums: Optional[np.ndarray]  # (B,) uint32 or None
-    payloads: List[bytes]
+    payloads: Sequence  # bytes; memoryviews in a PayloadArea (copy=False)
     profile: str = "planar"  # "planar" | "rans16"
     group_lanes: int = 0  # lanes per group (rans16 only)
 
@@ -165,9 +232,10 @@ def pack(
     return bytes(out)
 
 
-def crc32s(payloads: List[bytes], device=None) -> np.ndarray:
-    """The CRC32 of each payload, ``<u4``: the one CRC32 loop of the
-    container format, in one ``format.crc32`` region."""
+def crc32s(payloads, device=None) -> np.ndarray:
+    """The CRC32 of each payload (any byte buffers), ``<u4``: the one
+    CRC32 loop of the container format, in one ``format.crc32``
+    region."""
     with annotate("format.crc32", device):
         return np.array([zlib.crc32(p) for p in payloads], dtype="<u4")
 
@@ -187,25 +255,35 @@ def verify(cont: Container, lo: int = 0, hi: Optional[int] = None,
 
 
 def unpack(blob: bytes, *, verify_checksums: bool = True,
-           device=None) -> Container:
+           device=None, copy: bool = True) -> Container:
     """Parse + validate a container (typed errors, never panics —
     SURVEY.md §5 failure-detection requirement).  ``device`` names where
-    the caller decodes, for the profiler regions."""
+    the caller decodes, for the profiler regions.
+
+    ``copy=False`` leaves the payloads in the blob (a
+    :class:`PayloadArea`), for a caller that is done with the container
+    before the blob changes; the default copies them out as ``bytes``."""
+    global _copied_payload_bytes
     with annotate("format.unpack", device):
         cont = _parse(blob)
         if verify_checksums and cont.checksums is not None:
             verify(cont, device=device)
+        if copy:
+            _copied_payload_bytes += int(cont.payloads.offsets[-1])
+            cont = dataclasses.replace(
+                cont, payloads=[p.tobytes() for p in cont.payloads])
         return cont
 
 
 def _parse(blob: bytes) -> Container:
-    """The header, lengths, tables, checksums and payload slices of a
-    container, validated."""
-    if len(blob) < HEADER_BYTES:
-        raise InvalidHeader(f"container too short: {len(blob)} bytes")
-    magic, version, flags, k, glog, alphabet, block_len, n_symbols, b = _HEADER.unpack(
-        blob[:HEADER_BYTES]
-    )
+    """The header, lengths, tables and checksums of a container, and its
+    payloads where they lie in ``blob``, validated."""
+    mv = memoryview(blob).toreadonly()
+    size = mv.nbytes
+    if size < HEADER_BYTES:
+        raise InvalidHeader(f"container too short: {size} bytes")
+    magic, version, flags, k, glog, alphabet, block_len, n_symbols, b = (
+        _HEADER.unpack_from(mv))
     if magic != MAGIC:
         raise InvalidHeader(f"bad magic {magic!r}")
     if version not in (1, VERSION):
@@ -249,20 +327,20 @@ def _parse(blob: bytes) -> Container:
 
     off = HEADER_BYTES
 
-    def take(n: int, what: str) -> bytes:
+    def take(dtype, count: int, what: str) -> np.ndarray:
+        """The next ``count`` items of ``dtype``, read in place."""
         nonlocal off
-        if off + n > len(blob):
+        n = np.dtype(dtype).itemsize * count
+        if off + n > size:
             raise InvalidHeader(f"container truncated in {what}")
-        chunk = blob[off : off + n]
+        items = np.frombuffer(mv, dtype, count, off)
         off += n
-        return chunk
+        return items
 
-    lengths = np.frombuffer(take(4 * b, "lengths"), dtype="<u4").astype(np.int64)
-    tdt = _table_dtype(k)
+    lengths = take("<u4", b, "lengths").astype(np.int64)
     n_tables = b if per_block else 1
-    tables = np.frombuffer(
-        take(tdt.itemsize * alphabet * n_tables, "tables"), dtype=tdt
-    ).astype(np.uint32)
+    tables = take(_table_dtype(k), alphabet * n_tables, "tables").astype(
+        np.uint32)
     tables = tables.reshape(b, alphabet) if per_block else tables.reshape(alphabet)
     # validate table sums
     sums = tables.sum(axis=-1, dtype=np.int64)
@@ -274,13 +352,20 @@ def _parse(blob: bytes) -> Container:
 
     checksums = None
     if has_crc:
-        checksums = np.frombuffer(take(4 * b, "checksums"), dtype="<u4").copy()
+        checksums = take("<u4", b, "checksums").copy()
 
-    payloads: List[bytes] = []
-    for i, ln in enumerate(lengths.tolist()):
-        payloads.append(take(int(ln), f"payload {i}"))
-    if off != len(blob):
-        raise InvalidHeader(f"{len(blob) - off} trailing bytes after payloads")
+    # the payloads: bounds checked over the offsets at once, then left
+    # where they lie
+    offsets = np.zeros(b + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    room = size - off
+    if offsets[-1] > room:
+        i = int(np.argmax(offsets[1:] > room))
+        raise InvalidHeader(f"container truncated in payload {i}")
+    if offsets[-1] != room:
+        raise InvalidHeader(
+            f"{room - int(offsets[-1])} trailing bytes after payloads")
+    payloads = PayloadArea(mv[off:], offsets)
 
     return Container(
         k=k,

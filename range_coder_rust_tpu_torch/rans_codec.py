@@ -37,7 +37,7 @@ once a call or a device batch, never once a payload.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -284,10 +284,11 @@ def _parse_payload(p, block_len: int, group_lanes: int = None,
     return sizes, pre6, p[off2:]
 
 
-def decode_groups(payloads: List[bytes], table_c: np.ndarray, block_len: int,
+def decode_groups(payloads: Sequence, table_c: np.ndarray, block_len: int,
                   group_lanes: int = None, *, device="cuda") -> np.ndarray:
-    """Decode per-group payload bytes back to (NG*g, L) symbol rows, in
-    the narrowest unsigned dtype of the alphabet.
+    """Decode per-group payloads (byte strings, or a container's
+    :class:`.format.PayloadArea`) back to (NG*g, L) symbol rows, in the
+    narrowest unsigned dtype of the alphabet.
 
     ``table_c``: (A,) shared counts, or (NG, A) per-group counts (the
     adaptive mode; uploaded as one ``(NG, 1024)`` tensor)."""
@@ -311,7 +312,7 @@ def _batch_tables(cums: torch.Tensor, start: int, stop: int) -> torch.Tensor:
     return cums if cums.dim() == 1 else cums[start:stop]
 
 
-def _upload_payloads(payloads: List[bytes], block_len: int, g: int,
+def _upload_payloads(payloads: Sequence, block_len: int, g: int,
                      device) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """Parse one batch of group payloads and upload what the decode
@@ -322,8 +323,7 @@ def _upload_payloads(payloads: List[bytes], block_len: int, g: int,
         if any(s.shape[0] != NT for s, _, _ in parsed):
             raise InvalidHeader("rans16 payloads disagree on tile count")
         group_hw = np.array([int(s.sum()) for s, _, _ in parsed], np.int64)
-        region = np.frombuffer(b"".join(bytes(r) for _, _, r in parsed),
-                               "<i2")
+        region = np.frombuffer(b"".join(r for _, _, r in parsed), "<i2")
     with annotate("rans16.upload", device):
         states = _states_tensor([p6 for _, p6, _ in parsed], g, device)
         grp_off = torch.from_numpy(np.concatenate(
@@ -332,7 +332,7 @@ def _upload_payloads(payloads: List[bytes], block_len: int, g: int,
     return states, region_dev, grp_off
 
 
-def _decode_batch(payloads: List[bytes], cum: torch.Tensor, a_count: int,
+def _decode_batch(payloads: Sequence, cum: torch.Tensor, a_count: int,
                   block_len: int, g: int, device) -> np.ndarray:
     """Parse, upload and decode one batch of group payloads."""
     states, region, grp_off = _upload_payloads(payloads, block_len, g,
