@@ -12,7 +12,8 @@ coder).
 * :mod:`.rans_codec` — host orchestration of the rans16 profile;
 * :mod:`.kernels` — the CUDA kernels' wrappers (rans16's encode and
   decode, the planar block coder's encode and decode), their plain
-  PyTorch versions and their launch counts;
+  PyTorch versions and their launch counts (the planar ones also by the
+  placement of their table);
 * :mod:`.blocks`, :mod:`.adaptive`, :mod:`.ops` — the planar profile:
   block-parallel coding with shared, raw-count or per-block tables (the
   planar kernels on a card; the plain versions' u64 ops in :mod:`.ops`);
@@ -47,7 +48,7 @@ from .api import CodecConfig, decode, decode_bytes, encode
 from .core.decoder import Decoder
 from .core.encoder import Encoder
 from .core.rc64 import MASK64, MAX_BYTES_PER_SYMBOL, TOP8, TOP16, RangeCoder
-from .kernels import launch_counts, reset_launch_counts
+from .kernels import launch_counts, launch_placements, reset_launch_counts
 from .models.freq_table import FreqTable
 from .pmodel import PModel
 
@@ -60,6 +61,7 @@ __all__ = [
     "decode_bytes",
     "encode",
     "launch_counts",
+    "launch_placements",
     "reset_launch_counts",
     "RangeCoder",
     "Encoder",

@@ -22,7 +22,8 @@ Decodes and reads parse the container in place (``fmt.unpack(...,
 copy=False)``): the payloads stay in the blob, and each device call
 uploads its slice of the payload area.  The planar
 phases run in named profiler regions (``planar.histogram`` with
-``planar.table`` inside, ``planar.pad``, ``planar.upload``,
+``planar.table`` inside; in a decode ``planar.table`` around the int64
+table, its prefix sum and their upload; ``planar.pad``, ``planar.upload``,
 ``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h``,
 ``planar.payloads``, ``planar.payload_bytes``, ``planar.pack``;
 :func:`.utils.profiling.annotate`), as rans16's do in :mod:`.rans_codec`
@@ -405,11 +406,13 @@ def _decode_container(cont: fmt.Container, device) -> np.ndarray:
 
         return decode_adaptive_container(cont, device)
     b, L = cont.n_blocks, cont.block_len
-    c = np.asarray(cont.tables_c, np.int64)
-    # a raw-total container (FLAG_RAW_TOTAL) has k = 0
-    total = {"k": cont.k} if cont.k else {"total": int(c.sum())}
-    c_dev = torch.from_numpy(c).to(device)
-    cum_dev = torch.from_numpy(np.concatenate([[0], np.cumsum(c)])).to(device)
+    with annotate("planar.table", device):
+        c = np.asarray(cont.tables_c, np.int64)
+        # a raw-total container (FLAG_RAW_TOTAL) has k = 0
+        total = {"k": cont.k} if cont.k else {"total": int(c.sum())}
+        c_dev = torch.from_numpy(c).to(device)
+        cum_dev = torch.from_numpy(
+            np.concatenate([[0], np.cumsum(c)])).to(device)
     rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
     out = np.empty(b * L, np.int32)
     for start in range(0, b, rows_per_chunk):

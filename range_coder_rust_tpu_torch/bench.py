@@ -61,8 +61,8 @@ import torch
 from . import api, blocks, rans_codec
 from . import format as fmt
 from .errors import ConfigError
-from .kernels import (_build, launch_counts, rans_decode_tiled,
-                      rans_encode_tiled)
+from .kernels import (_build, launch_counts, launch_placements,
+                      rans_decode_tiled, rans_encode_tiled)
 from .models.table import Pow2Table, table_from_data_pow2
 from .native import golden
 from .testing import make_corpus
@@ -302,7 +302,8 @@ def run(n_bytes: int | None = None, device="cuda") -> dict:
     e2e_gbps = e2e_n / 1e9 / wall
     log(f"end to end api ({e2e_n} bytes): encode {e2e_n / 1e9 / e2e_enc_t} "
         f"GB/s, decode {e2e_n / 1e9 / e2e_dec_t} GB/s, combined {e2e_gbps} "
-        f"GB/s; kernel launches {launch_counts()}")
+        f"GB/s; kernel launches {launch_counts()}, planar launches by "
+        f"table placement {launch_placements()}")
 
     line = {
         "metric": "encode+decode GB/s/chip",

@@ -56,16 +56,13 @@ namespace {
 
 using planar::u64;
 
-//: where a CTA finds its symbols: a search of the pairs in device memory
-//: or in shared memory, or a slot table of u8 or u16 slots
-enum Mode { kGlobal, kSmemPairs, kSlots8, kSlots16 };
-
+// the slot type of a placement (planar_device.cuh's Placement)
 template <int kMode>
 struct SlotOf {
   using type = uint8_t;
 };
 template <>
-struct SlotOf<kSlots16> {
+struct SlotOf<planar::kSlots16> {
   using type = uint16_t;
 };
 
@@ -98,8 +95,8 @@ __global__ void __launch_bounds__(planar::kDecodeThreads)
   using Slot = typename SlotOf<kMode>::type;
   Slot* slots = reinterpret_cast<Slot*>(pairs + a_count + 1);
   bool use_slots = false;
-  if (kMode != kGlobal) planar::stage_table(pairs, c, cum, a_count);
-  if (kMode == kSlots8 || kMode == kSlots16)
+  if (kMode != planar::kGlobal) planar::stage_table(pairs, c, cum, a_count);
+  if (kMode == planar::kSlots8 || kMode == planar::kSlots16)
     use_slots = planar::build_slots(slots, pairs, a_count, tot.qmax + 1);
   const long long b =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -116,8 +113,8 @@ __global__ void __launch_bounds__(planar::kDecodeThreads)
   const bool vec =
       (L & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 #endif
-  auto table = planar::TableFor<kMode != kGlobal>::get(pairs, c, cum,
-                                                      a_count, per_block, b);
+  auto table = planar::TableFor<kMode != planar::kGlobal>::get(
+      pairs, c, cum, a_count, per_block, b);
   if (use_slots)
     decode_one(code + off, len, L, table, a_count, tot,
                planar::SlotFind<Slot>{slots}, row, vec);
@@ -149,32 +146,26 @@ cudaError_t launch(const uint8_t* code, long long code_bytes,
                    long long row_bytes, const long long* c,
                    const long long* cum, int per_block, int a_count, int k,
                    u64 total, int32_t* out, long long n_blocks, int L,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, int* placed) {
   const unsigned grid = static_cast<unsigned>(
       (n_blocks + planar::kDecodeThreads - 1) / planar::kDecodeThreads);
-#if !defined(RC_VARIANT_PLANAR_BINARY_SEARCH)
-  // a slot table for a shared table of total 2^k, where the pairs and the
-  // slots fit the CTA's shared memory
+  int where = planar::kGlobal;
+  size_t smem = 0;
+  const cudaError_t err =
+      planar::placement(true, per_block, a_count, k, &where, &smem);
+  if (err != cudaSuccess) return err;
+  if (placed) *placed = where;
+  auto run = where == planar::kSmemPairs
+                 ? &launch_mode<Total, planar::kSmemPairs>
+                 : &launch_mode<Total, planar::kGlobal>;
+  // placement gives a slot table to totals of 2^k only
   if constexpr (std::is_same<Total, planar::Pow2Total>::value) {
-    const int sb = planar::slot_bytes(a_count);
-    if (!per_block && sb) {
-      const size_t pairs = (static_cast<size_t>(a_count) + 1) * sizeof(uint2);
-      int limit = 0;
-      const cudaError_t err = planar::max_smem_optin(&limit);
-      if (err != cudaSuccess) return err;
-      const size_t with_slots = pairs + (static_cast<size_t>(sb) << k);
-      if (with_slots <= static_cast<size_t>(limit))
-        return (sb == 1 ? launch_mode<Total, kSlots8>
-                        : launch_mode<Total, kSlots16>)(
-            with_slots, grid, code, code_bytes, offsets, lengths, row_bytes,
-            c, cum, per_block, a_count, k, total, out, n_blocks, L, stream);
-    }
+    if (where == planar::kSlots8) run = &launch_mode<Total, planar::kSlots8>;
+    if (where == planar::kSlots16)
+      run = &launch_mode<Total, planar::kSlots16>;
   }
-#endif
-  const size_t smem = planar::smem_table_bytes(per_block, a_count);
-  return (smem ? launch_mode<Total, kSmemPairs> : launch_mode<Total, kGlobal>)(
-      smem, grid, code, code_bytes, offsets, lengths, row_bytes, c, cum,
-      per_block, a_count, k, total, out, n_blocks, L, stream);
+  return run(smem, grid, code, code_bytes, offsets, lengths, row_bytes, c,
+             cum, per_block, a_count, k, total, out, n_blocks, L, stream);
 }
 
 }  // namespace
@@ -184,7 +175,8 @@ cudaError_t launch(const uint8_t* code, long long code_bytes,
 // `code`, or, with `offsets` and `lengths` null, the row_bytes bytes at
 // b * row_bytes.  The table c / cum (int64; one shared, or one per block
 // when `per_block`); total 2^k for k in [1, 16] or `total` for k = 0.
-// Returns the launch's cudaError_t.
+// Where `placed` is not null, the launch's planar::Placement is written
+// there.  Returns the launch's cudaError_t.
 extern "C" int rc_planar_decode(const uint8_t* code, long long code_bytes,
                                 const long long* offsets,
                                 const long long* lengths, long long row_bytes,
@@ -192,15 +184,17 @@ extern "C" int rc_planar_decode(const uint8_t* code, long long code_bytes,
                                 int per_block, int a_count, int k,
                                 unsigned long long total, int32_t* out,
                                 long long n_blocks, int L,
-                                cudaStream_t stream) {
+                                cudaStream_t stream, int* placed) {
   if (n_blocks < 1 || L < 0 || row_bytes < 0 || code_bytes < 0 ||
       a_count < 1 || k < 0 || k > 16 || total < 1 || total >> 32 ||
       (offsets == nullptr) != (lengths == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   return k ? launch<planar::Pow2Total>(code, code_bytes, offsets, lengths,
                                        row_bytes, c, cum, per_block, a_count,
-                                       k, total, out, n_blocks, L, stream)
+                                       k, total, out, n_blocks, L, stream,
+                                       placed)
            : launch<planar::RawTotal>(code, code_bytes, offsets, lengths,
                                       row_bytes, c, cum, per_block, a_count,
-                                      k, total, out, n_blocks, L, stream);
+                                      k, total, out, n_blocks, L, stream,
+                                      placed);
 }

@@ -1,7 +1,8 @@
 // What the planar kernels (planar_encode.cu, planar_decode.cu) share on
 // the card beside planar_step.cuh: their CTA size, the tables staged in
-// shared memory (the (cum, c) pairs, and the decode's slot table), and
-// the shared-memory opt-in.
+// shared memory (the (cum, c) pairs, and the decode's slot table), the
+// shared-memory opt-in, and the one decision of where a launch's table
+// lies (placement, which each entry point reports to its caller).
 //
 // scripts_torch/decode_variants.py --kernel planar_decode|planar_encode
 // builds the kernels with one design point put back at a time; the normal
@@ -72,6 +73,40 @@ inline cudaError_t max_smem_optin(int* bytes) {
   if (err != cudaSuccess) return err;
   return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                 dev);
+}
+
+//: where a launch finds its table (kernels/planar.py's PLACEMENTS names
+//: them in this order): a search of the (cum, c) pairs in device memory,
+//: the same search of the pairs staged in shared memory, or the decode's
+//: slot table of u8 or u16 slots behind the staged pairs
+enum Placement { kGlobal = 0, kSmemPairs = 1, kSlots8 = 2, kSlots16 = 3 };
+
+// The one decision of both planar launchers: the placement of a launch's
+// table and the dynamic shared memory it takes.  The decode (`decode`) of
+// one shared table of total 2^k (k >= 1) takes a slot table where the
+// pairs and the slots fit the device's opt-in; otherwise the pairs are
+// staged where they fit the default 48 KB (a shared table of A <= 6143
+// symbols), and read from device memory where not.
+inline cudaError_t placement(bool decode, int per_block, int a_count, int k,
+                             int* where, size_t* smem) {
+#if !defined(RC_VARIANT_PLANAR_BINARY_SEARCH)
+  const int sb = slot_bytes(a_count);
+  if (decode && k > 0 && !per_block && sb) {
+    const size_t pairs = (static_cast<size_t>(a_count) + 1) * sizeof(uint2);
+    int limit = 0;
+    const cudaError_t err = max_smem_optin(&limit);
+    if (err != cudaSuccess) return err;
+    const size_t with_slots = pairs + (static_cast<size_t>(sb) << k);
+    if (with_slots <= static_cast<size_t>(limit)) {
+      *where = sb == 1 ? kSlots8 : kSlots16;
+      *smem = with_slots;
+      return cudaSuccess;
+    }
+  }
+#endif
+  *smem = smem_table_bytes(per_block, a_count);
+  *where = *smem ? kSmemPairs : kGlobal;
+  return cudaSuccess;
 }
 
 // Lets `kernel` launch with `smem` bytes of dynamic shared memory: above

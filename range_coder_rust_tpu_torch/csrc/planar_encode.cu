@@ -93,13 +93,18 @@ template <typename Sym, typename Total>
 cudaError_t launch(const void* sym, const long long* c, const long long* cum,
                    int per_block, int a_count, int k, u64 total, uint8_t* out,
                    long long* lengths, long long n_blocks, int L,
-                   long long capacity, cudaStream_t stream) {
+                   long long capacity, cudaStream_t stream, int* placed) {
   const unsigned grid = static_cast<unsigned>(
       (n_blocks + planar::kEncodeThreads - 1) / planar::kEncodeThreads);
-  const size_t smem = planar::smem_table_bytes(per_block, a_count);
+  int where = planar::kGlobal;
+  size_t smem = 0;
+  const cudaError_t err =
+      planar::placement(false, per_block, a_count, k, &where, &smem);
+  if (err != cudaSuccess) return err;
+  if (placed) *placed = where;
   const Sym* rows = static_cast<const Sym*>(sym);
   const Total tot = planar::total_of<Total>(k, total);
-  if (smem)
+  if (where == planar::kSmemPairs)
     planar_encode_kernel<Sym, Total, true>
         <<<grid, planar::kEncodeThreads, smem, stream>>>(
             rows, c, cum, per_block, a_count, tot, out, lengths, n_blocks, L,
@@ -117,13 +122,13 @@ cudaError_t launch_total(const void* sym, const long long* c,
                          const long long* cum, int per_block, int a_count,
                          int k, u64 total, uint8_t* out, long long* lengths,
                          long long n_blocks, int L, long long capacity,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, int* placed) {
   return k ? launch<Sym, planar::Pow2Total>(sym, c, cum, per_block, a_count,
                                             k, total, out, lengths, n_blocks,
-                                            L, capacity, stream)
+                                            L, capacity, stream, placed)
            : launch<Sym, planar::RawTotal>(sym, c, cum, per_block, a_count, k,
                                            total, out, lengths, n_blocks, L,
-                                           capacity, stream);
+                                           capacity, stream, placed);
 }
 
 }  // namespace
@@ -132,13 +137,16 @@ cudaError_t launch_total(const void* sym, const long long* c,
 // 4: i32, 8: i64) with the table c / cum (int64; one shared, or one per
 // block when `per_block`), total 2^k for k in [1, 16] or `total` for
 // k = 0.  `out` is the zeroed (n_blocks, capacity) code matrix, `lengths`
-// (n_blocks,) int64.  Returns the launch's cudaError_t.
+// (n_blocks,) int64.  Where `placed` is not null, the launch's
+// planar::Placement (kSmemPairs or kGlobal) is written there.  Returns the
+// launch's cudaError_t.
 extern "C" int rc_planar_encode(const void* sym, int sym_bytes,
                                 const long long* c, const long long* cum,
                                 int per_block, int a_count, int k,
                                 unsigned long long total, uint8_t* out,
                                 long long* lengths, long long n_blocks, int L,
-                                long long capacity, cudaStream_t stream) {
+                                long long capacity, cudaStream_t stream,
+                                int* placed) {
   if (n_blocks < 1 || L < 0 || a_count < 1 || capacity < 0 || k < 0 ||
       k > 16 || (k == 0 && (total < 1 || total >> 32)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -146,19 +154,19 @@ extern "C" int rc_planar_encode(const void* sym, int sym_bytes,
     case 1:
       return launch_total<uint8_t>(sym, c, cum, per_block, a_count, k, total,
                                    out, lengths, n_blocks, L, capacity,
-                                   stream);
+                                   stream, placed);
     case 2:
       return launch_total<uint16_t>(sym, c, cum, per_block, a_count, k,
                                     total, out, lengths, n_blocks, L,
-                                    capacity, stream);
+                                    capacity, stream, placed);
     case 4:
       return launch_total<int32_t>(sym, c, cum, per_block, a_count, k, total,
                                    out, lengths, n_blocks, L, capacity,
-                                   stream);
+                                   stream, placed);
     case 8:
       return launch_total<long long>(sym, c, cum, per_block, a_count, k, total,
                                    out, lengths, n_blocks, L, capacity,
-                                   stream);
+                                   stream, placed);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

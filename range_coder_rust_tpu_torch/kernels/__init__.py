@@ -3,10 +3,12 @@ rans16 profile's encode and decode, and the planar profile's block coder.
 
 Each wrapper runs the plain version for a CPU tensor and launches its
 kernel (``csrc/*.cu``, built at first use by ``_build.py``) for a CUDA
-tensor; it counts its kernel launches in ``<wrapper>.launches``.
+tensor.  It counts its kernel launches: the rans16 wrappers in
+``<wrapper>.launches``, the planar ones by the table placement the kernel
+reported, in ``<wrapper>.placements``.
 """
 
-from .planar import (planar_decode_blocks, planar_decode_plain,
+from .planar import (PLACEMENTS, planar_decode_blocks, planar_decode_plain,
                      planar_encode_blocks, planar_encode_plain)
 from .rans_decode import decode_plan, rans_decode_plain, rans_decode_tiled
 from .rans_encode import (encode_plan, rans_encode_plain, rans_encode_tiled,
@@ -19,21 +21,41 @@ WRAPPERS = {"rans_encode": rans_encode_tiled, "rans_decode": rans_decode_tiled,
             "planar_decode": planar_decode_blocks}
 
 
+#: the wrappers that count their launches by table placement
+PLACED = {name: fn for name, fn in WRAPPERS.items()
+          if hasattr(fn, "placements")}
+
+
 def launch_counts() -> dict:
     """Kernel launches so far, by kernel name."""
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: sum(fn.placements.values()) if name in PLACED
+            else fn.launches for name, fn in WRAPPERS.items()}
+
+
+def launch_placements() -> dict:
+    """The planar kernels' launches so far by the placement of their
+    table, as each launch reported it: ``{kernel: {placement: count}}``
+    over :data:`PLACEMENTS`."""
+    return {name: dict(fn.placements) for name, fn in PLACED.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    """Zero :func:`launch_counts` and :func:`launch_placements`."""
+    for name, fn in WRAPPERS.items():
+        if name in PLACED:
+            fn.placements = dict.fromkeys(PLACEMENTS, 0)
+        else:
+            fn.launches = 0
 
 
 __all__ = [
+    "PLACED",
+    "PLACEMENTS",
     "WRAPPERS",
     "decode_plan",
     "encode_plan",
     "launch_counts",
+    "launch_placements",
     "planar_decode_blocks",
     "planar_decode_plain",
     "planar_encode_blocks",

@@ -57,13 +57,14 @@ SIGNATURES = {
     # (int *)
     "rc_rans_decode_plan": [_I, _I, _I, _P, _P, _P, _P],
     # sym, sym_bytes, c, cum, per_block, a_count, k, total, out, lengths,
-    # n_blocks, block_len, capacity, stream
+    # n_blocks, block_len, capacity, stream -> placement (int *, or null)
     "rc_planar_encode": [_P, _I, _P, _P, _I, _I, _I, _U64, _P, _P, _I64, _I,
-                         _I64, _P],
+                         _I64, _P, _P],
     # code, code_bytes, offsets, lengths, row_bytes, c, cum, per_block,
-    # a_count, k, total, out, n_blocks, block_len, stream
+    # a_count, k, total, out, n_blocks, block_len, stream -> placement
+    # (int *, or null)
     "rc_planar_decode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _I, _I, _U64,
-                         _P, _I64, _I, _P],
+                         _P, _I64, _I, _P, _P],
 }
 
 

@@ -37,6 +37,7 @@ same table (reference src/range_coder.rs:53-92).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -49,6 +50,12 @@ from ..ops.transition import (decode_find_rfreq, decode_find_rfreq_div,
 #: symbol dtypes the encode kernel reads, and their bytes
 SYMBOL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4,
                 torch.int64: 8}
+
+#: where a launch finds its table, by the number the kernel reports
+#: (``planar::Placement`` of ``csrc/planar_device.cuh``): a search of the
+#: (cum, c) pairs in device memory or staged in shared memory, or the
+#: decode's slot table of u8 or u16 slots
+PLACEMENTS = ("global", "smem_pairs", "slots8", "slots16")
 
 #: elements of one compaction index (blocks x transitions x 8 bytes):
 #: bounds its int64 index and byte tensors to 32 MiB and 4 MiB
@@ -303,14 +310,15 @@ def planar_encode_blocks(symbols: torch.Tensor, c: torch.Tensor,
         return code, lengths
     from ._build import check, library
 
+    placed = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().rc_planar_encode(
             symbols.data_ptr(), SYMBOL_BYTES[symbols.dtype], c.data_ptr(),
             cum.data_ptr(), int(c.dim() == 2), a, k, total, code.data_ptr(),
-            lengths.data_ptr(), B, L, capacity, stream)
+            lengths.data_ptr(), B, L, capacity, stream, ctypes.byref(placed))
     check(err, "planar encode kernel")
-    planar_encode_blocks.launches += 1
+    _count(planar_encode_blocks, placed.value)
     return code, lengths
 
 
@@ -345,17 +353,25 @@ def planar_decode_blocks(code: torch.Tensor, c: torch.Tensor,
                                          lengths.data_ptr())
     from ._build import check, library
 
+    placed = ctypes.c_int(-1)
     with torch.cuda.device(code.device):
         stream = torch.cuda.current_stream(code.device).cuda_stream
         err = library().rc_planar_decode(
             code.data_ptr(), code.numel(), offs_ptr, lens_ptr, row_bytes,
             c.data_ptr(), cum.data_ptr(), int(c.dim() == 2), a, k, total,
-            out.data_ptr(), B, block_len, stream)
+            out.data_ptr(), B, block_len, stream, ctypes.byref(placed))
     check(err, "planar decode kernel")
-    planar_decode_blocks.launches += 1
+    _count(planar_decode_blocks, placed.value)
     return out
 
 
-#: launches of the CUDA kernels (the plain versions do not count)
-planar_encode_blocks.launches = 0
-planar_decode_blocks.launches = 0
+def _count(wrapper, placed: int) -> None:
+    """One launch of ``wrapper``'s kernel, at the table placement the
+    kernel reported."""
+    wrapper.placements[PLACEMENTS[placed]] += 1
+
+
+#: launches of the CUDA kernels (the plain versions do not count), by the
+#: table placement each launch reported
+planar_encode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)
+planar_decode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)

@@ -391,7 +391,7 @@ def planar_runners(kernel: str, libs: dict, inp: dict) -> dict:
                 _launch(fn(rows.data_ptr(), 1, x["c"].data_ptr(),
                            x["cum"].data_ptr(), 0, 256, k, total,
                            enc_code.data_ptr(), enc_len.data_ptr(), nb, L,
-                           x["cap"], stream()))
+                           x["cap"], stream(), None))
 
             def exact(run=run):
                 ok = True
@@ -424,7 +424,8 @@ def planar_runners(kernel: str, libs: dict, inp: dict) -> dict:
                 _launch(fn(x["flat"].data_ptr(), x["flat"].numel(),
                            x["offsets"].data_ptr(), x["lengths"].data_ptr(),
                            0, x["c"].data_ptr(), x["cum"].data_ptr(), 0, 256,
-                           k, total, dev_out.data_ptr(), nb, L, stream()))
+                           k, total, dev_out.data_ptr(), nb, L, stream(),
+                           None))
         if kernel == "planar_decode":
             def exact(run=run):
                 ok = True

@@ -26,6 +26,9 @@ warm-up round trip (kernel build, allocator), each direction runs
    host wall, summed over their calls; a nested region's wall is also in
    the region around it.
 
+The kernel launches of the three calls are printed, the planar ones by
+the placement of their table (``kernels.launch_placements``).
+
 Every line carries the card's name and power limit.  It imports no jax.
 """
 
@@ -133,6 +136,7 @@ def main() -> int:
         "decode": lambda: rt.decode(blob, device="cuda"),
     }
     for name, fn in runs.items():
+        rt.reset_launch_counts()
         wall = plain_wall(fn)[1] / 1e3
         say(f"{name} n={n}: wall {wall:.4f} s = {n / wall / 1e9:.4f} GB/s "
             "(unprofiled)")
@@ -143,6 +147,9 @@ def main() -> int:
         for name_r, (cnt, us) in sorted(regions.items(),
                                         key=lambda kv: -kv[1][1]):
             say(f"{name} region {name_r}: host {us / 1e3:.3f} ms x{cnt}")
+        say(f"{name} kernel launches over the three calls "
+            f"{rt.launch_counts()}; planar ones by table placement "
+            f"{rt.launch_placements()}")
         if not per:
             say(f"{name} torch.profiler: no device events in the trace; "
                 "device time not measured")

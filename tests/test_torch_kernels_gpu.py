@@ -20,10 +20,12 @@ import torch
 
 from range_coder_rust_tpu_torch import kernels, rans, testing
 from range_coder_rust_tpu_torch import rans_codec as t_codec
-from range_coder_rust_tpu_torch.models.table import table_from_data_pow2
+from range_coder_rust_tpu_torch.blocks import default_capacity, upload_rows
+from range_coder_rust_tpu_torch.models.table import (build_table_pow2,
+                                                     table_from_data_pow2)
 from range_coder_rust_tpu_torch.testing import (
-    CASE_OPTIONS, KERNEL_CASES, PLANAR_CASES, kernel_case, kernels_vs_plain,
-    planar_vs_plain, zipf)
+    CASE_OPTIONS, KERNEL_CASES, PLANAR_CASES, flat_payloads, kernel_case,
+    kernels_vs_plain, planar_vs_plain, zipf)
 
 pytestmark = pytest.mark.gpu
 
@@ -219,6 +221,51 @@ def test_cuda_planar_kernels_match_plain(name, cuda_device):
     lengths and decoded symbols."""
     assert planar_vs_plain(name, cuda_device) == {"planar_encode": 0,
                                                   "planar_decode": 0}
+
+
+@pytest.mark.parametrize("a,encode_at,decode_at", [
+    (256, "smem_pairs", "slots8"), (6143, "smem_pairs", "slots16"),
+    (6144, "global", "slots16"), (50257, "global", "global")])
+def test_cuda_planar_shared_tables_by_width_match_plain(a, encode_at,
+                                                        decode_at,
+                                                        cuda_device):
+    """Both planar kernels on one shared 2^16 table at widths on each side
+    of the placements' limits (the pairs staged up to A = 6143, a slot
+    table up to what the opt-in holds; 50257 is GPT-2's vocabulary),
+    symbols at the width the codec uploads (u8, else u16): code bytes,
+    lengths and symbols equal the plain versions', and each launch
+    reports the expected placement.  The table is apportioned from the
+    Zipf(1.0) law's counts over 10^8 symbols, as a shard's: at 50257 its
+    most frequent symbols get 1 of 2^16."""
+    B, L = 128, 512
+    values = zipf(B * L, a, 31, alpha=1.0).reshape(B, L)
+    law = 1.0 / np.arange(1, a + 1)
+    t = build_table_pow2(np.ceil(1e8 * law / law.sum()).astype(np.uint64), 16)
+    c, cum = (torch.from_numpy(x.astype(np.int64)) for x in (t.c, t.cum))
+    rows = upload_rows(values.astype(np.uint8 if a <= 256 else np.uint16),
+                       "cpu")
+    cap = default_capacity(L, 16)
+    dev = [x.to(cuda_device) for x in (rows, c, cum)]
+    kernels.reset_launch_counts()
+    code_k, len_k = kernels.planar_encode_blocks(*dev, k=16, capacity=cap)
+    code_p, len_p = kernels.planar_encode_blocks(rows, c, cum, k=16,
+                                                 capacity=cap)
+    assert torch.equal(code_k.cpu(), code_p) and torch.equal(len_k.cpu(),
+                                                              len_p)
+    assert int(len_p.max()) <= cap
+    flat, offs, lens = flat_payloads(code_p, len_p, a)
+    dec_k = kernels.planar_decode_blocks(
+        flat.to(cuda_device), *dev[1:], k=16, block_len=L,
+        offsets=offs.to(cuda_device), lengths=lens.to(cuda_device))
+    dec_p = kernels.planar_decode_blocks(flat, c, cum, k=16, block_len=L,
+                                         offsets=offs, lengths=lens)
+    assert torch.equal(dec_k.cpu(), dec_p)
+    np.testing.assert_array_equal(dec_p.numpy(), values)
+    placed = kernels.launch_placements()
+    assert placed["planar_encode"] == {**dict.fromkeys(kernels.PLACEMENTS, 0),
+                                       encode_at: 1}
+    assert placed["planar_decode"] == {**dict.fromkeys(kernels.PLACEMENTS, 0),
+                                       decode_at: 1}
 
 
 @pytest.mark.parametrize("mode", ["shared", "raw_total", "per_block"])

@@ -2,8 +2,9 @@
 
 Containers must be byte-equal to ``range_coder_rust_tpu.api.encode``'s
 for the default ``CodecConfig()``, a partial last block over several
-device chunks, an empty input, a supplied table, raw-count tables, and a
-4096-symbol alphabet under a rans16 config (which falls back to planar);
+device chunks, an empty input, a supplied table, raw-count tables, a
+4096-symbol alphabet under a rans16 config (which falls back to planar),
+and uint16 tokens over GPT-2's 50257-symbol vocabulary;
 each package decodes the other's containers to int32 symbols, and planar
 ``decode_range`` equals the reference's.  Each JAX container is made once.
 """
@@ -42,6 +43,8 @@ CASES = {
                   {"raw_total": True, "block_len": 128}, None),
     "fallback_4096": (zipf(3000, 4096, 5).astype(np.int32), 4096,
                       {"profile": "rans16"}, None),
+    "gpt2_tokens": (zipf(5 * 512 + 440, 50257, 6, alpha=1.0, dtype=np.uint16),
+                    50257, {}, None),
 }
 _CACHE = {}
 

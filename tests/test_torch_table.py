@@ -48,6 +48,20 @@ def test_build_table_pow2_equal(seed, a, zero_frac, scale):
     assert got.k == want.k and got.alphabet == want.alphabet
 
 
+def test_build_table_pow2_equal_at_a_gpt2_shards_counts():
+    """GPT-2's 50257 tokens at the Zipf(1.0) law's counts over a 10^8-token
+    shard: the clamps of the rare tokens to 1 overshoot 2^16, and the
+    overshoot taken from the largest shares leaves the most frequent
+    tokens at 1.  The port's table is the JAX package's all the same."""
+    law = 1.0 / np.arange(1, 50258)
+    counts = np.ceil(1e8 * law / law.sum()).astype(np.uint64)
+    want = jax_table.build_table_pow2(counts, 16)
+    got = t_table.build_table_pow2(counts, 16)
+    np.testing.assert_array_equal(got.c, want.c)
+    np.testing.assert_array_equal(got.cum, want.cum)
+    assert (got.c[:8] == 1).all() and int(got.c.argmax()) == 100
+
+
 @pytest.mark.parametrize("k", [8, 12, 16])
 def test_normalize_pow2_np_equal(k):
     counts = _counts(k, 200, 0.2, 5000)
