@@ -65,13 +65,22 @@ Phases (any failure ends the run with a non-zero exit):
    matrix equal to the rows, each kernel's time (CUDA events; the
    decode's in both forms) beside the plain version's and its bound, and
    the device kernels and busy share of one kernel round trip
-   (``torch.profiler``);
+   (``torch.profiler``); then ("9 planar histogram") the histogram
+   kernel at the planar cells' shapes: the main path's corpus on the card
+   (u8, 256 bins, the ``warp_private`` path) and 10^8 Zipf(1.0) u16
+   token ids over GPT-2's 50257 drawn on the card (``block_smem``), each
+   launch on its path and its counts equal to the plain version's on the
+   same tensor, its time beside the plain version's, ``torch.bincount``'s
+   alone and its byte bound; phase 9's encode launches it once, on
+   ``warp_private``;
 10. the other planar paths, one device call (16 MiB) each: raw-count
    tables (total 2^24, where the reference switches its decode divide),
    a 4096-symbol alphabet under a rans16 config (the planar fallback),
    and per-block tables (``adaptive.encode_adaptive``, k = 12, L = 512,
    on the adaptive path's mixed corpus); each exact, sampled blocks
-   against the scalar coder, through the planar kernels;
+   against the scalar coder, through the planar kernels (the fallback's
+   histogram on the card, on ``block_smem``; the others count on the
+   host);
 11. the sharded rans16 path: the main path's rows, tables and decode
    inputs through ``parallel.make_sharded_rans16`` over two shards on the
    card (``[cuda:0, cuda:0]``; one below 128 MiB, where the main path is
@@ -129,12 +138,15 @@ REPLACES = {
     "rans_decode": "range_coder_rust_tpu/kernels/rans_decode.py:75",
     "planar_encode": "range_coder_rust_tpu/blocks.py:69",
     "planar_decode": "range_coder_rust_tpu/blocks.py:319",
+    # no Pallas kernel: the reference's host np.bincount
+    "planar_histogram": "range_coder_rust_tpu/api.py:208",
 }
 SOURCES = {
     "rans_encode": f"{PKG}/csrc/rans_encode.cu",
     "rans_decode": f"{PKG}/csrc/rans_decode.cu",
     "planar_encode": f"{PKG}/csrc/planar_encode.cu",
     "planar_decode": f"{PKG}/csrc/planar_decode.cu",
+    "planar_histogram": f"{PKG}/csrc/planar_histogram.cu",
 }
 #: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and 32-bit
 #: integer operations/s: 64 INT32 lanes a SM (NVIDIA's Hopper architecture
@@ -460,7 +472,8 @@ def round_trip(smoke: Smoke, what: str, data, cfg) -> dict:
         raise AssertionError(f"{what}: round trip is not exact "
                              f"({out.dtype} {out.shape})")
     if (min(counts["rans_encode"], counts["rans_decode"]) < 1
-            or counts["planar_encode"] or counts["planar_decode"]):
+            or counts["planar_encode"] or counts["planar_decode"]
+            or counts["planar_histogram"]):
         raise AssertionError(f"{what}: a rans16 kernel never launched, or "
                              f"a planar one did: {counts}")
     n = data.size
@@ -669,14 +682,18 @@ def check_sampled_blocks(what, data, cont, n_sample: int = 64) -> int:
     return len(picks)
 
 
-def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
+def planar_round_trip(smoke, what, data, encode, device="cuda",
+                      histogram=None) -> dict:
     """Encode with ``encode(device)`` and decode with ``api.decode`` on
     ``device``, the launch counts reset before and read after: exact
     round trip (int32), walls, bits/sym, sampled blocks against the
     scalar coder, and the wall per step of the block coder (each device
     call of ``chunk_symbols`` symbols runs L + 1 encode steps and L decode
-    steps).  On a card each device call launches each planar kernel once
-    (the encode again for a capacity retry) and no rans16 kernel."""
+    steps).  On a card each device call launches each planar coder kernel
+    once (the encode again for a capacity retry) and no rans16 kernel,
+    and the encode launches the histogram kernel once on the path
+    ``histogram`` names (``None``: the table's counts are not taken on
+    the card)."""
     import numpy as np
     import torch
 
@@ -687,23 +704,29 @@ def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
     blob, t_enc = timed(lambda: encode(device), device)
     out, t_dec = timed(lambda: rt.decode(blob, device=device), device)
     counts = rt.launch_counts()
+    placed = rt.launch_placements()["planar_histogram"]
     if out.dtype != np.int32 or not np.array_equal(out, data):
         raise AssertionError(f"{what}: round trip is not exact")
     cont = fmt.unpack(blob)
     n, L = data.size, cont.block_len
     calls = -(-cont.n_blocks // max(1, api._CHUNK_SYMBOLS // L))
     on_card = torch.device(device).type == "cuda"
+    hist_want = dict.fromkeys(placed, 0)
+    if on_card and histogram:
+        hist_want[histogram] = 1
     if (counts["rans_encode"] or counts["rans_decode"]
             or counts["planar_decode"] != (calls if on_card else 0)
             or not (counts["planar_encode"] >= calls if on_card
-                    else counts["planar_encode"] == 0)):
+                    else counts["planar_encode"] == 0)
+            or placed != hist_want):
         raise AssertionError(f"{what}: {calls} device calls, launches "
-                             f"{counts}")
+                             f"{counts}, histogram paths {placed}")
     checked = check_sampled_blocks(what, data, cont)
     res = {"blob": blob, "cont": cont, "enc_s": t_enc, "dec_s": t_dec,
            "bits": 8 * len(blob) / max(n, 1),
            "enc_step_ms": t_enc / (calls * (L + 1)) * 1e3,
-           "dec_step_ms": t_dec / (calls * L) * 1e3, "counts": counts}
+           "dec_step_ms": t_dec / (calls * L) * 1e3, "counts": counts,
+           "histogram_paths": placed}
     smoke.say(f"{what}: n={n} L={L} blocks={cont.n_blocks} k={cont.k} "
               f"({calls} device calls): round trip exact (int32), encode "
               f"wall {t_enc:.4f} s = {n / t_enc / 1e9:.4f} GB/s "
@@ -712,7 +735,8 @@ def planar_round_trip(smoke, what, data, encode, device="cuda") -> dict:
               f"({res['dec_step_ms']:.4f} ms of wall a step), container "
               f"{len(blob)} "
               f"B = {res['bits']:.5f} bits/sym, {checked} sampled blocks == "
-              f"the scalar coder's, launches {counts}")
+              f"the scalar coder's, launches {counts}, histogram paths "
+              f"{placed}")
     return res
 
 
@@ -723,22 +747,22 @@ def planar_path(smoke, data, device="cuda") -> dict:
     256 MiB), the first 1024 blocks encoded again on the CPU (byte-equal
     payloads), and five ``decode_range`` slices."""
     import numpy as np
+    import torch
 
     import range_coder_rust_tpu_torch as rt
     from range_coder_rust_tpu_torch import api
-    from range_coder_rust_tpu_torch.models.table import Pow2Table
 
     cfg = rt.CodecConfig()
     res = planar_round_trip(smoke, "planar path", data, lambda dev: rt.encode(
-        data, alphabet=256, config=cfg, device=dev), device)
+        data, alphabet=256, config=cfg, device=dev), device,
+        histogram="warp_private")
     cont, L = res["cont"], cfg.block_len
-    c = np.asarray(cont.tables_c, np.uint32)
-    table = Pow2Table(c, np.concatenate([[0], np.cumsum(c)]).astype(np.uint32),
-                      cont.k)
+    c = torch.from_numpy(np.asarray(cont.tables_c, np.int64))
+    cum = torch.cat([c.new_zeros(1), c.cumsum(0)])
     nb = min(1024, data.size // L)
     (code, lengths), cpu_s = timed(lambda: api._encode_rows(
-        data[: nb * L].reshape(nb, L), table,
-        rt.blocks.default_capacity(L, cont.k), "cpu"), "cpu")
+        torch.from_numpy(data[: nb * L].reshape(nb, L)),
+        c, cum, cont.k, rt.blocks.default_capacity(L, cont.k)), "cpu")
     if api._payloads(code, lengths) != cont.payloads[:nb]:
         raise AssertionError("planar path: the CPU's first blocks differ")
     smoke.say(f"planar path: the first {nb} blocks encoded again on the "
@@ -880,6 +904,78 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
     return res
 
 
+def zipf_on_card(n: int, a: int, alpha: float, dtype, seed: int):
+    """``n`` Zipf(``alpha``) symbols over ``a`` drawn on the card (an
+    inverse CDF), as ``dtype`` (u16 ids as int16 bits)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    cdf = torch.cumsum(torch.arange(1, a + 1, dtype=torch.float64,
+                                    device="cuda") ** -alpha, 0)
+    cdf /= cdf[-1].clone()
+    out = torch.empty(n, dtype=dtype, device="cuda")
+    for i in range(0, n, 1 << 26):
+        u = torch.rand(min(1 << 26, n - i), dtype=torch.float64,
+                       generator=gen, device="cuda")
+        out[i : i + u.numel()] = torch.searchsorted(
+            cdf, u, right=True).clamp_(max=a - 1).to(dtype)
+    return out
+
+
+def planar_histogram_check(smoke, data, device="cuda") -> dict:
+    """Phase 9's histogram: the histogram kernel on the main path's
+    corpus on the card (u8, 256 bins) and on 10^8 Zipf(1.0) u16 token ids
+    over 50257 drawn there, the planar cells' two shapes.  Each launch
+    must report the path its alphabet selects (``warp_private``,
+    ``block_smem``) and its counts must equal the plain version's on the
+    same tensor (no difference allowed).  Returns, for each, the kernel's
+    ms (CUDA events, mean of 20 after a warm-up), the plain version's
+    (host clock, one run), ``torch.bincount``'s alone on the symbols it
+    takes (``library_ms``, CUDA events) and the bound: the symbols read
+    once at 3.35 TB/s."""
+    import torch
+
+    from range_coder_rust_tpu_torch import kernels, testing
+
+    inputs = {"bytes": (lambda: torch.from_numpy(data).to(device), 256,
+                        "warp_private"),
+              "tokens": (lambda: zipf_on_card(10**8, 50257, 1.0, torch.int16,
+                                              0x50257), 50257, "block_smem")}
+    out = {}
+    for name, (make, a, path) in inputs.items():
+        sym = make()
+        kernels.reset_launch_counts()
+        got = kernels.planar_histogram(sym, a)
+        placed = kernels.launch_placements()["planar_histogram"]
+        want, plain_ms = plain_wall(lambda: kernels.histogram_plain(sym, a))
+        err = testing._max_abs(got, want)
+        if placed != {**dict.fromkeys(kernels.HISTOGRAM_PATHS, 0), path: 1}:
+            raise AssertionError(f"planar histogram {name}: paths {placed}, "
+                                 f"{path} expected")
+        if err or int(got.sum()) != sym.numel():
+            raise AssertionError(f"planar histogram {name}: counts differ "
+                                 f"from the plain version's by {err}")
+        wide = sym.to(torch.int32) & 0xFFFF if sym.dtype == torch.int16 \
+            else sym
+        res = {"n": sym.numel(), "a": a, "path": path, "err": err,
+               "ms": cuda_ms(lambda: kernels.planar_histogram(sym, a), 20),
+               "plain_ms": plain_ms,
+               "library_ms": cuda_ms(
+                   lambda: torch.bincount(wide, minlength=a), 20),
+               "bound_ms": nbytes(sym) / PEAK_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        smoke.say(f"planar_histogram {name} n={res['n']} {sym.dtype} A={a}: "
+                  f"path {path}, counts == the plain version's; kernel "
+                  f"{res['ms']:.4f} ms, plain PyTorch on the card "
+                  f"{plain_ms:.4f} ms, torch.bincount alone "
+                  f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} "
+                  f"ms (bytes)")
+        out[name] = res
+        del sym, wide, got, want
+    return out
+
+
 def planar_other_paths(smoke, data, mixed, device="cuda") -> dict:
     """Phase 10: the other planar paths, one device call (2^24 symbols)
     each: raw-count tables (total = the corpus count, 2^24), a
@@ -902,7 +998,8 @@ def planar_other_paths(smoke, data, mixed, device="cuda") -> dict:
         "fallback_4096": planar_round_trip(
             smoke, "planar fallback, 4096 symbols", wide,
             lambda dev: rt.encode(wide, alphabet=4096, config=wide_cfg,
-                                  device=dev), device),
+                                  device=dev), device,
+            histogram="block_smem"),
         "per_block": planar_round_trip(
             smoke, "planar per-block tables", mixed,
             lambda dev: adaptive.encode_adaptive(
@@ -949,7 +1046,8 @@ def sharded_path(smoke, main: dict, device="cuda") -> dict:
     if device == "cuda" and counts != {"rans_encode": shards,
                                        "rans_decode": shards,
                                        "planar_encode": 0,
-                                       "planar_decode": 0}:
+                                       "planar_decode": 0,
+                                       "planar_histogram": 0}:
         raise AssertionError(f"sharded rans16 launches {counts}")
     smoke.say(f"sharded rans16 over {shards} shards on {device}: encode "
               f"{enc_s * 1e3:.4f} ms, decode {dec_s * 1e3:.4f} ms (host "
@@ -1048,7 +1146,7 @@ def rank_main(rank: int, port: int, world: int, tmp: str, job: dict) -> None:
                      "gather_s": gather.seconds}
     res["planar_launches"] = launched = rt.launch_counts()
     if (launched["rans_encode"] or launched["rans_decode"]
-            or launched["planar_decode"]
+            or launched["planar_decode"] or launched["planar_histogram"]
             or launched["planar_encode"] < (dev.startswith("cuda"))):
         raise AssertionError(f"planar multihost launched {launched}")
     if rank == 0:
@@ -1146,7 +1244,8 @@ def multihost_path(smoke, main: dict, tmp: str, device="cuda",
             "launches": {k: [r["launches" if k.startswith("rans")
                                 else "planar_launches"][k] for r in ranks]
                          for k in ("rans_encode", "rans_decode",
-                                   "planar_encode", "planar_decode")}}
+                                   "planar_encode", "planar_decode",
+                                   "planar_histogram")}}
 
 
 def cli_path(smoke, main: dict, tmp: str, device="cuda") -> dict:
@@ -1318,6 +1417,7 @@ def main() -> int:
     planar = phase("9 planar", planar_path, main["data"])
     planar["kernels"] = phase("9 planar loops", planar_kernels, main["data"],
                               planar["cont"])
+    hist = phase("9 planar histogram", planar_histogram_check, main["data"])
     mixed = testing.mixed_corpus(
         min(main["data"].size, 1 << 24)).astype(np.uint8)
     other = phase("10 other planar", planar_other_paths, main["data"], mixed)
@@ -1333,11 +1433,12 @@ def main() -> int:
         for name, r in {"main": planar, **other}.items()}
         | {"kernels": {k: planar["kernels"][k] for k in (
             "times", "bounds", "matrix_ms", "device_events",
-            "busy_share")}}))
+            "busy_share")}, "histogram": hist}))
     for name in ("rans_encode", "rans_decode"):
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
     for name in ("planar_encode", "planar_decode"):
         err[name] = max(err[name], planar["kernels"]["err"][name])
+    err["planar_histogram"] = max(r["err"] for r in hist.values())
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "range_coder_rust_tpu"))
@@ -1375,7 +1476,21 @@ def main() -> int:
          **({"matrix_ms": planar["kernels"]["matrix_ms"]}
             if name == "planar_decode" else {}),
          "multihost_launches": multi["launches"][name]}
-        for name in ("planar_encode", "planar_decode")]}
+        for name in ("planar_encode", "planar_decode")] + [
+        {"name": "planar_histogram", "route": "cuda",
+         "source": SOURCES["planar_histogram"],
+         "replaces": REPLACES["planar_histogram"],
+         "launches": planar["counts"]["planar_histogram"],
+         "paths": planar["histogram_paths"],
+         "max_abs_err": err["planar_histogram"],
+         **{k: hist["bytes"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+         **{f"tokens_{k}": hist["tokens"][k] for k in (
+             "n", "path", "ms", "plain_ms", "bound_ms", "library_ms")},
+         "other_paths_launches": {p: r["counts"]["planar_histogram"]
+                                  for p, r in other.items()},
+         "sharded_launches": sharded["counts"]["planar_histogram"],
+         "multihost_launches": multi["launches"]["planar_histogram"]}]}
     smoke.say("CLI walls (s): " + json.dumps(cli))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

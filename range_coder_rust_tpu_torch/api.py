@@ -14,16 +14,20 @@ per group (``per_group_tables``), sync points (``sync_tiles``) with
 (``raw_total``), per-block tables (:mod:`.adaptive`), and the fallback
 from rans16 for alphabets over 1023 symbols.
 
-Orchestration is host-side and thin: cut the input into ``(B, L)``
-blocks, run the device coder over chunks of ``chunk_symbols``, trim the
-payloads by their lengths, and pack.  A block that overflows its
+Orchestration is host-side and thin.  The shared-table planar encode
+uploads its input once into a device buffer of whole ``(B, L)`` blocks,
+counts it there for the table (:func:`.kernels.planar_histogram`), pads
+the last block there, runs the device coder over chunks of
+``chunk_symbols`` of that buffer, trims the payloads by their lengths,
+and packs.  A block that overflows its
 capacity is encoded again with twice the room, never cut silently.
 Decodes and reads parse the container in place (``fmt.unpack(...,
 copy=False)``): the payloads stay in the blob, and each device call
 uploads its slice of the payload area.  The planar
-phases run in named profiler regions (``planar.histogram`` with
-``planar.table`` inside; in a decode ``planar.table`` around the int64
-table, its prefix sum and their upload; ``planar.pad``, ``planar.upload``,
+phases run in named profiler regions (``planar.upload``, the input's and
+the table's; ``planar.histogram`` with ``planar.table`` inside; in a
+decode ``planar.table`` around the int64 table, its prefix sum and their
+upload; ``planar.pad``, the device fill of the last block,
 ``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h``,
 ``planar.payloads``, ``planar.payload_bytes``, ``planar.pack``;
 :func:`.utils.profiling.annotate`), as rans16's do in :mod:`.rans_codec`
@@ -43,8 +47,10 @@ import torch
 from . import format as fmt
 from . import rans_codec
 from .blocks import (decode_payloads, default_capacity, encode_blocks,
-                     encode_blocks_div, payload_buffers, upload_rows)
+                     encode_blocks_div, host_rows, payload_buffers)
 from .errors import ConfigError, ZeroFrequency
+from .kernels import planar_histogram
+from .kernels.histogram import ROW_TYPES
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
 
@@ -129,32 +135,49 @@ def _as_symbols(data, alphabet: Optional[int]) -> tuple[np.ndarray, int]:
     return arr.astype(np.int32), a
 
 
-def _encode_rows(rows: np.ndarray, table: Pow2Table, capacity: int,
-                 device) -> tuple[np.ndarray, np.ndarray]:
-    """Encode ``(B, L)`` rows on ``device``, again with twice the capacity
-    while a block overflows."""
-    with annotate("planar.upload", device):
-        sym = upload_rows(rows, device)
-        c = torch.from_numpy(table.c.astype(np.int64)).to(device)
-        cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
+def _row_dtype(symbols: np.ndarray, a: int) -> np.dtype:
+    """The dtype planar rows travel at: the symbols' own, or int32 where
+    symbol ``a - 1`` (a possible pad) does not fit it."""
+    dt = symbols.dtype
+    if dt in ROW_TYPES and a - 1 <= np.iinfo(dt).max:
+        return dt
+    return np.dtype(np.int32)
+
+
+def _upload_symbols(symbols: np.ndarray, size: int, row_dtype: np.dtype,
+                    piece: int, device) -> torch.Tensor:
+    """A new ``(size,)`` buffer on ``device`` at ``row_dtype``'s width
+    whose first ``symbols.size`` places hold the symbols, uploaded in
+    pieces of ``piece`` symbols (the rest is left for :func:`_pad`)."""
+    buf = torch.empty(size, dtype=ROW_TYPES[row_dtype][1], device=device)
+    for i in range(0, symbols.size, piece):
+        part = host_rows(symbols[i : i + piece].astype(row_dtype, copy=False))
+        buf[i : i + part.numel()].copy_(part)
+    return buf
+
+
+def _pad(sym: torch.Tensor, n: int, pad_symbol: int) -> None:
+    """Fill ``sym`` past its first ``n`` places with ``pad_symbol`` (u16
+    rows hold int16 bits)."""
+    if sym.dtype == torch.int16 and pad_symbol >= 1 << 15:
+        pad_symbol -= 1 << 16
+    sym[n:].fill_(pad_symbol)
+
+
+def _encode_rows(sym: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
+                 k: int, capacity: int) -> tuple[np.ndarray, np.ndarray]:
+    """Encode ``(B, L)`` device rows, again with twice the capacity while
+    a block overflows."""
+    device = sym.device
     while True:
         with annotate("planar.encode_steps", device):
-            code, lengths = encode_blocks(sym, c, cum, k=table.k,
+            code, lengths = encode_blocks(sym, c, cum, k=k,
                                           capacity=capacity)
         with annotate("planar.d2h", device):
             lengths_np = lengths.cpu().numpy()
             if int(lengths_np.max()) <= capacity:
                 return code.cpu().numpy(), lengths_np
         capacity *= 2  # rare adversarial blocks
-
-
-def _planar_rows(symbols: np.ndarray, pad_symbol: int, L: int) -> np.ndarray:
-    """The symbols padded with ``pad_symbol`` to whole ``(B, L)`` rows, at
-    their own width, or int32 where the pad does not fit it."""
-    if pad_symbol > np.iinfo(symbols.dtype).max:
-        symbols = symbols.astype(np.int32)
-    return rans_codec._padded_rows(symbols, pad_symbol,
-                                   max(1, math.ceil(symbols.size / L)), L)
 
 
 def _payloads(code: np.ndarray, lengths: np.ndarray) -> list:
@@ -172,7 +195,12 @@ def encode(
     """Compress ``data`` (bytes or 1-D integer array) into a container.
 
     A shared order-0 table is built from the data's histogram unless one
-    is supplied."""
+    is supplied.  The planar profile keeps the whole input on ``device``
+    at its row width (1, 2 or 4 bytes a symbol: 4 where the alphabet's
+    last symbol does not fit the input's dtype) from its upload to its
+    last device call, so an input larger than the device's free memory
+    does not encode there; ``chunk_symbols`` bounds the code matrix of
+    each call, not the input."""
     symbols, a = _as_symbols(data, alphabet)
     n = int(symbols.size)
 
@@ -200,14 +228,7 @@ def encode(
             sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
             device=device)
 
-    if table is None:
-        with annotate("planar.histogram", device):
-            counts = np.bincount(symbols, minlength=a).astype(np.uint64)
-            if n == 0:
-                counts[0] = 1  # an empty input: any valid table
-            with annotate("planar.table", device):
-                table = build_table_pow2(counts, config.k)
-    else:
+    if table is not None:
         if table.alphabet < a:
             raise ConfigError(
                 f"table covers {table.alphabet} symbols, data needs {a}")
@@ -217,24 +238,42 @@ def encode(
         if np.any(present & (table.c == 0)):
             raise ZeroFrequency(
                 "data contains symbols with zero frequency in the given table")
+        if config.profile == "rans16":
+            # as in the reference, a supplied table is shared by all groups
+            return rans_codec.encode(
+                symbols, alphabet=a, table=table, block_len=config.block_len,
+                with_checksums=config.with_checksums,
+                sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
+                device=device)
 
-    if config.profile == "rans16":
-        # as in the reference, a supplied table is shared by all groups
-        return rans_codec.encode(
-            symbols, alphabet=a, table=table, block_len=config.block_len,
-            with_checksums=config.with_checksums,
-            sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
-            device=device)
-
+    # planar: the input goes up once, in whole rows at its own width
     L = config.block_len
+    n_rows = max(1, math.ceil(n / L))
+    row_dtype = _row_dtype(symbols, a)
+    with annotate("planar.upload", device):
+        sym = _upload_symbols(symbols, n_rows * L, row_dtype,
+                              config.chunk_symbols, device)
+    if table is None:
+        with annotate("planar.histogram", device):
+            counts = planar_histogram(sym[:n], a).cpu().numpy().astype(
+                np.uint64)
+            if n == 0:
+                counts[0] = 1  # an empty input: any valid table
+            with annotate("planar.table", device):
+                table = build_table_pow2(counts, config.k)
+    pad = int(np.argmax(table.c))
     with annotate("planar.pad", device):
-        rows = _planar_rows(symbols, int(np.argmax(table.c)), L)
+        _pad(sym, n, pad)
+    with annotate("planar.upload", device):
+        c = torch.from_numpy(table.c.astype(np.int64)).to(device)
+        cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
+    rows = sym.view(n_rows, L)
     rows_per_chunk = max(1, config.chunk_symbols // L)
     capacity = default_capacity(L, table.k)
     payloads = []
-    for start in range(0, rows.shape[0], rows_per_chunk):
+    for start in range(0, n_rows, rows_per_chunk):
         code, lengths = _encode_rows(rows[start : start + rows_per_chunk],
-                                     table, capacity, device)
+                                     c, cum, table.k, capacity)
         with annotate("planar.payloads", device):
             payloads += _payloads(code, lengths)
     with annotate("planar.pack", device):
@@ -267,17 +306,21 @@ def _encode_raw(symbols: np.ndarray, a: int, config: CodecConfig,
     cum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     total = int(counts.sum())
 
-    rows = _planar_rows(symbols, int(np.argmax(c)), L)
+    n_rows = max(1, math.ceil(n / L))
+    sym = _upload_symbols(symbols, n_rows * L, _row_dtype(symbols, a),
+                          config.chunk_symbols, device)
+    _pad(sym, n, int(np.argmax(c)))
+    rows = sym.view(n_rows, L)
     # worst case ~5 bytes a symbol at 32-bit totals, plus the flush
     capacity = -(-(6 * L + 8) // 4) * 4
     rows_per_chunk = max(1, config.chunk_symbols // L)
     c_dev = torch.from_numpy(c.astype(np.int64)).to(device)
     cum_dev = torch.from_numpy(cum).to(device)
     payloads = []
-    for start in range(0, rows.shape[0], rows_per_chunk):
+    for start in range(0, n_rows, rows_per_chunk):
         code, lengths = encode_blocks_div(
-            upload_rows(rows[start : start + rows_per_chunk], device),
-            c_dev, cum_dev, total, capacity=capacity)
+            rows[start : start + rows_per_chunk], c_dev, cum_dev, total,
+            capacity=capacity)
         lengths_np = lengths.cpu().numpy()
         if int(lengths_np.max()) > capacity:
             raise AssertionError("raw-total capacity bound exceeded")

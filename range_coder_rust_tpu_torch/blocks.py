@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .format import PayloadArea
+from .kernels.histogram import ROW_TYPES
 from .kernels.planar import (compact_emissions, encode_scan, encode_scan_div,
                              planar_decode_blocks, planar_encode_blocks)
 
@@ -34,7 +35,7 @@ FLUSH_BYTES = 8
 __all__ = ["FLUSH_BYTES", "compact_emissions", "decode_blocks",
            "decode_blocks_div", "decode_payloads", "default_capacity",
            "encode_blocks", "encode_blocks_div", "encode_scan",
-           "encode_scan_div", "payload_buffers", "upload_rows"]
+           "encode_scan_div", "host_rows", "payload_buffers", "upload_rows"]
 
 
 def default_capacity(block_len: int, k: int) -> int:
@@ -45,16 +46,24 @@ def default_capacity(block_len: int, k: int) -> int:
     return -(-cap // 4) * 4
 
 
+def host_rows(symbols: np.ndarray) -> torch.Tensor:
+    """Host symbols as a CPU tensor at the width they travel at
+    (:data:`.kernels.histogram.ROW_TYPES`: u16 as int16 bits; any other
+    integer type as int32): a view of contiguous input, else a copy."""
+    symbols = np.ascontiguousarray(symbols)
+    if symbols.dtype not in ROW_TYPES:
+        symbols = symbols.astype(np.int32)
+    with warnings.catch_warnings():
+        # a read-only input is only read, by the copy that uploads it
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable", UserWarning)
+        return torch.from_numpy(symbols.view(ROW_TYPES[symbols.dtype][0]))
+
+
 def upload_rows(rows: np.ndarray, device) -> torch.Tensor:
     """``(B, L)`` host symbols -> a tensor on ``device`` at their own
-    width: uint8 stays uint8, uint16 travels as int16 bits, int32 stays
-    int32 (any other integer type goes as int32)."""
-    rows = np.ascontiguousarray(rows)
-    if rows.dtype == np.uint16:
-        rows = rows.view(np.int16)
-    elif rows.dtype not in (np.uint8, np.int32):
-        rows = rows.astype(np.int32)
-    return torch.from_numpy(rows).to(device)
+    width (:func:`host_rows`)."""
+    return host_rows(rows).to(device)
 
 
 def encode_blocks(symbols: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,

@@ -65,6 +65,8 @@ SIGNATURES = {
     # (int *, or null)
     "rc_planar_decode": [_P, _I64, _P, _P, _I64, _P, _P, _I, _I, _I, _U64,
                          _P, _I64, _I, _P, _P],
+    # sym, sym_bytes, n, a_count, totals, stream -> path (int *, or null)
+    "rc_planar_histogram": [_P, _I, _I64, _I, _P, _P, _P],
 }
 
 

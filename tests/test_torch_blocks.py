@@ -115,7 +115,9 @@ def test_cut_capacity_matches_reference_and_retry_restores():
         torch.from_numpy(t.cum.astype(np.int64)), k=t.k, capacity=small)
     np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlen))
     np.testing.assert_array_equal(code.numpy(), np.asarray(jcode))
-    rcode, rlen = api._encode_rows(rows, t, small, "cpu")
+    rcode, rlen = api._encode_rows(
+        torch.from_numpy(rows), torch.from_numpy(t.c.astype(np.int64)),
+        torch.from_numpy(t.cum.astype(np.int64)), t.k, small)
     assert rcode.shape[1] >= int(tlen.max()) and rcode.shape[1] % small == 0
     np.testing.assert_array_equal(rlen, tlen)
     for b in range(rows.shape[0]):

@@ -63,7 +63,8 @@ def test_cuda_api_roundtrip_counts_launches(cuda_device):
     assert blob == rt.encode(data, config=cfg, device="cpu")
     out = rt.decode(blob, device=cuda_device)
     assert rt.launch_counts() == {"rans_encode": 1, "rans_decode": 1,
-                                  "planar_encode": 0, "planar_decode": 0}
+                                  "planar_encode": 0, "planar_decode": 0,
+                                  "planar_histogram": 0}
     np.testing.assert_array_equal(out, data)
 
 
@@ -272,7 +273,9 @@ def test_cuda_planar_shared_tables_by_width_match_plain(a, encode_at,
 def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     """The planar profile on the card (the planar kernels): the container
     equals the CPU's and decodes back, each call one launch of each planar
-    kernel and no rans16 kernel."""
+    coder kernel and no rans16 kernel; the shared table's histogram is one
+    launch of the histogram kernel (the raw and per-block tables keep
+    their host counts)."""
     import range_coder_rust_tpu_torch as rt
     from range_coder_rust_tpu_torch import adaptive
 
@@ -290,7 +293,8 @@ def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     assert blob == enc("cpu")
     np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
     assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
-                                  "planar_encode": 1, "planar_decode": 1}
+                                  "planar_encode": 1, "planar_decode": 1,
+                                  "planar_histogram": int(mode == "shared")}
 
 
 @pytest.mark.parametrize("per_group", [False, True])
@@ -320,7 +324,8 @@ def test_cuda_sharded_rans16_matches_single_call(per_group, cuda_device):
     out = dec(states, region, grp_off, cum, group_lanes=g,
               out_dtype=torch.uint8)
     assert kernels.launch_counts() == {"rans_encode": 2, "rans_decode": 2,
-                                       "planar_encode": 0, "planar_decode": 0}
+                                       "planar_encode": 0, "planar_decode": 0,
+                                       "planar_histogram": 0}
     n = int(one[1].sum())
     for got, want in zip((states, sizes, region, syncs),
                          (one[0], one[1], one[2][:n], one[3])):
@@ -343,3 +348,86 @@ def test_cuda_cli_encode_matches_cpu(tmp_path, cuda_device):
     back = tmp_path / "back.bin"
     assert main(["decode", str(out["cuda"]), "-o", str(back)]) == 0
     assert back.read_bytes() == data.tobytes()
+
+
+def _histogram_input(kind: str, n: int, a: int, np_dtype, seed: int):
+    """``n`` symbols below ``a`` (and below the width's 256 for bytes):
+    one symbol repeated (every add on one bin), uniform, or Zipf(1.2)."""
+    top = min(a, 256) if np_dtype == np.uint8 else a
+    if kind == "repeated":
+        return np.full(n, top - 1, np_dtype)
+    if kind == "uniform":
+        return np.random.default_rng(seed).integers(0, top, n).astype(
+            np_dtype)
+    return zipf(n, top, seed).astype(np_dtype)
+
+
+#: the largest alphabet whose u32 bins fit the opt-in shared memory
+_FIT = "largest block_smem"
+
+
+@pytest.mark.parametrize("np_dtype,a,path", [
+    (np.uint8, 1, "warp_private"), (np.uint8, 2, "warp_private"),
+    (np.uint8, 256, "warp_private"), (np.uint8, 257, "warp_private"),
+    (np.uint16, 2, "warp_private"), (np.uint16, 257, "block_smem"),
+    (np.uint16, 50257, "block_smem"), (np.uint16, _FIT, "block_smem"),
+    (np.uint16, 65536, "global"),
+    (np.int32, 1, "warp_private"), (np.int32, 256, "warp_private"),
+    (np.int32, 257, "block_smem"), (np.int32, 50257, "block_smem"),
+    (np.int32, _FIT, "block_smem"), (np.int32, 65536, "global")])
+def test_cuda_histogram_matches_bincount(np_dtype, a, path, cuda_device):
+    """The histogram kernel's counts equal ``np.bincount``'s exactly, at
+    each symbol width, on each path, for lengths 0, 1, L - 1, one that
+    is no multiple of 16 bytes and one over 2^24, on aligned tensors and
+    on views one symbol off the 16-byte grid, and each launch is counted
+    on the path the alphabet selects (u8 symbols hold 256 bins whatever
+    the alphabet)."""
+    props = torch.cuda.get_device_properties(cuda_device)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    if a == _FIT:
+        a = optin // 4
+    width = np.dtype(np_dtype).itemsize
+    to_torch = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[width]
+    cases = [(n, kind) for n in (0, 1, 511, 100_003)
+             for kind in ("repeated", "uniform", "zipf")]
+    cases += [((1 << 24) + 7, "repeated"), ((1 << 24) + 7, "zipf")]
+    kernels.reset_launch_counts()
+    launches = 0
+    for i, (n, kind) in enumerate(cases):
+        values = _histogram_input(kind, n, a, np_dtype, i)
+        want = np.bincount(values, minlength=a)
+        host = torch.from_numpy(values.view(
+            {1: np.uint8, 2: np.int16, 4: np.int32}[width]))
+        buf = torch.empty(n + 16, dtype=to_torch, device=cuda_device)
+        shifted = buf[1 : 1 + n]
+        shifted.copy_(host.to(cuda_device))
+        for sym in (host.to(cuda_device), shifted):
+            got = kernels.planar_histogram(sym, a)
+            launches += 1
+            assert got.dtype == torch.int64 and got.shape == (a,)
+            np.testing.assert_array_equal(got.cpu().numpy(), want,
+                                          err_msg=f"{n} {kind}")
+    assert kernels.launch_placements()["planar_histogram"] == {
+        **dict.fromkeys(kernels.HISTOGRAM_PATHS, 0), path: launches}
+
+
+@pytest.mark.parametrize("np_dtype,a,path", [
+    (np.uint8, None, "warp_private"), (np.uint16, 50257, "block_smem")])
+def test_cuda_encode_histogram_matches_cpu(np_dtype, a, path, cuda_device):
+    """``api.encode`` with the histogram on the card: several chunks cut
+    from the one uploaded buffer and a padded last row, for bytes and for
+    GPT-2 token ids; the container equals the CPU's byte for byte, the
+    histogram launches once on the path its alphabet selects, and the
+    container decodes back on the card."""
+    import range_coder_rust_tpu_torch as rt
+
+    n = 9 * 512 + 301
+    data = zipf(n, a or 256, 13, alpha=1.0 if a else 1.2).astype(np_dtype)
+    cfg = rt.CodecConfig(chunk_symbols=2 * 512)
+    rt.reset_launch_counts()
+    blob = rt.encode(data, alphabet=a, config=cfg, device=cuda_device)
+    assert rt.launch_placements()["planar_histogram"] == {
+        **dict.fromkeys(kernels.HISTOGRAM_PATHS, 0), path: 1}
+    assert rt.launch_counts()["planar_encode"] == 5
+    assert blob == rt.encode(data, alphabet=a, config=cfg, device="cpu")
+    np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)

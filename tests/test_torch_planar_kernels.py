@@ -170,7 +170,8 @@ def test_argument_checks_raise():
             planar_decode_blocks(args.pop("code"), args.pop("c"),
                                  args.pop("cum"), **args)
     assert kernels.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
-                                       "planar_encode": 0, "planar_decode": 0}
+                                       "planar_encode": 0, "planar_decode": 0,
+                                       "planar_histogram": 0}
 
 
 def test_planar_paths_call_only_the_wrappers():
