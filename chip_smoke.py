@@ -762,7 +762,7 @@ def planar_path(smoke, data, device="cuda") -> dict:
     nb = min(1024, data.size // L)
     (code, lengths), cpu_s = timed(lambda: api._encode_rows(
         torch.from_numpy(data[: nb * L].reshape(nb, L)),
-        c, cum, cont.k, rt.blocks.default_capacity(L, cont.k)), "cpu")
+        c, cum, rt.blocks.default_capacity(L, cont.k), k=cont.k), "cpu")
     if api._payloads(code, lengths) != cont.payloads[:nb]:
         raise AssertionError("planar path: the CPU's first blocks differ")
     smoke.say(f"planar path: the first {nb} blocks encoded again on the "

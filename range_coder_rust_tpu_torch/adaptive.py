@@ -7,10 +7,12 @@ its own table fitted to its contents:
           symbol``) and the batched pow2 normalization
           (:func:`.models.table.normalize_pow2`);
   pass 2: the planar block coder with one table row per block
-          (:func:`.blocks.encode_blocks` takes ``(B, A)`` tables; the
-          planar kernels on a card).
+          (the planar kernels take ``(B, A)`` tables).
 
-The container stores one table per block (FLAG_PER_BLOCK_TABLES), so any
+Both passes run a chunk at a time inside the api's one planar encode
+(``api._encode_planar``: the input uploaded once and padded on the
+device), so the ``(B, A)`` tables never exist for the whole input; the
+decode is the api's planar decode.  The container stores one table per block (FLAG_PER_BLOCK_TABLES), so any
 block stays independently decodable.  As in the reference, this path is
 for conformance; the adaptive mode for throughput is rans16's
 ``CodecConfig(per_group_tables=True)``.
@@ -18,16 +20,13 @@ for conformance; the adaptive mode for throughput is rans16's
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import format as fmt
-from .api import _CHUNK_SYMBOLS, _as_symbols
-from .blocks import (decode_payloads, default_capacity, encode_blocks,
-                     payload_buffers, upload_rows)
+from .api import CodecConfig, _as_symbols, _decode_container, _encode_planar
 from .errors import ConfigError
 from .models.table import normalize_pow2
 
@@ -61,41 +60,10 @@ def encode_adaptive(
     if a > 1 << k:
         raise ConfigError(
             f"alphabet {a} cannot get nonzero frequencies under total 2**{k}")
-    n = int(symbols.size)
-    L = block_len
-    b = max(1, math.ceil(n / L))
-    padded = np.zeros(b * L, symbols.dtype)
-    padded[:n] = symbols
-    rows = padded.reshape(b, L)
-
-    payloads, tables = [], []
-    rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
-    for start in range(0, b, rows_per_chunk):
-        chunk = upload_rows(rows[start : start + rows_per_chunk], device)
-        c, cum = block_tables(chunk, alphabet=a, k=k)
-        cap = default_capacity(L, k)
-        while True:
-            code, lengths = encode_blocks(chunk, c, cum, k=k, capacity=cap)
-            lengths_np = lengths.cpu().numpy()
-            if int(lengths_np.max()) <= cap:
-                break
-            cap *= 2  # rare adversarial blocks
-        code = code.cpu().numpy()
-        tables.append(c.cpu().numpy().astype(np.uint32))
-        payloads += [code[i, : lengths_np[i]].tobytes()
-                     for i in range(code.shape[0])]
-
-    return fmt.pack(
-        k=k,
-        alphabet=a,
-        block_len=L,
-        n_symbols=n,
-        payloads=payloads,
-        tables_c=np.concatenate(tables),
-        per_block_tables=True,
-        with_checksums=with_checksums,
-        device=device,
-    )
+    config = CodecConfig(block_len=block_len, with_checksums=with_checksums)
+    return _encode_planar(
+        symbols, a, config, device, k=k,
+        block_tables=lambda rows: block_tables(rows, alphabet=a, k=k))
 
 
 def decode_adaptive(blob: bytes, *, verify_checksums: bool = True,
@@ -112,17 +80,4 @@ def decode_adaptive_container(cont: fmt.Container, device="cuda"
     """Decode an already-parsed per-block-tables container."""
     if not cont.per_block_tables:
         raise ConfigError("container has a shared table; use api.decode")
-    b, L, n = cont.n_blocks, cont.block_len, cont.n_symbols
-    c_all = torch.from_numpy(np.asarray(cont.tables_c, np.int64))
-    cum_all = torch.nn.functional.pad(c_all.cumsum(1), (1, 0))
-    rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
-    out = np.empty(b * L, np.int32)
-    for start in range(0, b, rows_per_chunk):
-        stop = min(start + rows_per_chunk, b)
-        code, offs, lens = payload_buffers(
-            cont.payloads[start:stop], cont.lengths[start:stop], device)
-        dec = decode_payloads(code, offs, lens, c_all[start:stop].to(device),
-                              cum_all[start:stop].to(device), k=cont.k,
-                              block_len=L)
-        out[start * L : stop * L] = dec.cpu().numpy().reshape(-1)
-    return out[:n]
+    return _decode_container(cont, device)

@@ -14,12 +14,14 @@ per group (``per_group_tables``), sync points (``sync_tiles``) with
 (``raw_total``), per-block tables (:mod:`.adaptive`), and the fallback
 from rans16 for alphabets over 1023 symbols.
 
-Orchestration is host-side and thin.  The shared-table planar encode
-uploads its input once into a device buffer of whole ``(B, L)`` blocks,
-counts it there for the table (:func:`.kernels.planar_histogram`), pads
-the last block there, runs the device coder over chunks of
-``chunk_symbols`` of that buffer, trims the payloads by their lengths,
-and packs.  A block that overflows its
+Orchestration is host-side and thin.  One planar encode serves the
+three table forms (shared, raw total, per block; :func:`_encode_planar`):
+it uploads the input once into a device buffer of whole ``(B, L)``
+blocks, counts it there for a shared table
+(:func:`.kernels.planar_histogram`), pads the last block there, runs the
+device coder over chunks of ``chunk_symbols`` of that buffer, trims the
+payloads by their lengths, and packs; one planar decode
+(:func:`_decode_container`) serves them too.  A block that overflows its
 capacity is encoded again with twice the room, never cut silently.
 Decodes and reads parse the container in place (``fmt.unpack(...,
 copy=False)``): the payloads stay in the blob, and each device call
@@ -46,10 +48,10 @@ import torch
 
 from . import format as fmt
 from . import rans_codec
-from .blocks import (decode_payloads, default_capacity, encode_blocks,
-                     encode_blocks_div, host_rows, payload_buffers)
+from .blocks import (decode_payloads, default_capacity, host_rows,
+                     payload_buffers)
 from .errors import ConfigError, ZeroFrequency
-from .kernels import planar_histogram
+from .kernels import planar_encode_blocks, planar_histogram
 from .kernels.histogram import ROW_TYPES
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
@@ -165,14 +167,15 @@ def _pad(sym: torch.Tensor, n: int, pad_symbol: int) -> None:
 
 
 def _encode_rows(sym: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
-                 k: int, capacity: int) -> tuple[np.ndarray, np.ndarray]:
-    """Encode ``(B, L)`` device rows, again with twice the capacity while
-    a block overflows."""
+                 capacity: int, **total) -> tuple[np.ndarray, np.ndarray]:
+    """Encode ``(B, L)`` device rows with a total of ``2**k`` or a raw u32
+    ``total`` (one keyword), again with twice the capacity while a block
+    overflows; returns the code matrix and the lengths on the host."""
     device = sym.device
     while True:
         with annotate("planar.encode_steps", device):
-            code, lengths = encode_blocks(sym, c, cum, k=k,
-                                          capacity=capacity)
+            code, lengths = planar_encode_blocks(sym, c, cum,
+                                                 capacity=capacity, **total)
         with annotate("planar.d2h", device):
             lengths_np = lengths.cpu().numpy()
             if int(lengths_np.max()) <= capacity:
@@ -182,6 +185,76 @@ def _encode_rows(sym: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
 
 def _payloads(code: np.ndarray, lengths: np.ndarray) -> list:
     return [code[i, : lengths[i]].tobytes() for i in range(code.shape[0])]
+
+
+def _device_tables(c, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Counts ``c`` (one table, or one a row) as int64 on ``device``, and
+    their prefix sums ``cum`` (each table's with a leading 0)."""
+    c = np.asarray(c, np.int64)
+    cum = np.zeros(c.shape[:-1] + (c.shape[-1] + 1,), np.int64)
+    np.cumsum(c, axis=-1, out=cum[..., 1:])
+    return torch.from_numpy(c).to(device), torch.from_numpy(cum).to(device)
+
+
+def _encode_planar(symbols: np.ndarray, a: int, config: CodecConfig, device,
+                   *, k: int, c: Optional[np.ndarray] = None,
+                   block_tables=None) -> bytes:
+    """The planar encode of every table form, with ``config``'s
+    ``block_len``, ``chunk_symbols`` and ``with_checksums``: the input
+    goes up once into a device buffer of whole ``(B, L)`` rows at its
+    row width, is padded there, and is coded in chunks of that buffer
+    (:func:`_encode_rows`); the payloads are trimmed and packed.  The
+    table form is one shared table of total ``2**k`` (its counts ``c``,
+    or without ``c`` normalised from the uploaded input's
+    :func:`.kernels.planar_histogram`), a raw u32 total (``k == 0``, the
+    raw counts ``c``), or one ``2**k`` table a block (``block_tables``:
+    a chunk's device rows -> their ``(c, cum)``).  The pad is the shared
+    table's most frequent symbol, or 0, which per-block tables count."""
+    n, L = int(symbols.size), config.block_len
+    n_rows = max(1, math.ceil(n / L))
+    with annotate("planar.upload", device):
+        sym = _upload_symbols(symbols, n_rows * L, _row_dtype(symbols, a),
+                              config.chunk_symbols, device)
+    if c is None and block_tables is None:
+        with annotate("planar.histogram", device):
+            counts = planar_histogram(sym[:n], a).cpu().numpy().astype(
+                np.uint64)
+            if n == 0:
+                counts[0] = 1  # an empty input: any valid table
+            with annotate("planar.table", device):
+                c = build_table_pow2(counts, k).c
+    with annotate("planar.pad", device):
+        _pad(sym, n, 0 if c is None else int(np.argmax(c)))
+    if c is not None:
+        with annotate("planar.upload", device):
+            c_dev, cum_dev = _device_tables(c, device)
+    total = {"k": k} if k else {"total": int(c.astype(np.int64).sum())}
+    # worst case ceil(k/8) + 1 bytes a symbol, ~5 at 32-bit totals; + flush
+    capacity = default_capacity(L, k) if k else -(-(6 * L + 8) // 4) * 4
+    rows = sym.view(n_rows, L)
+    rows_per_chunk = max(1, config.chunk_symbols // L)
+    payloads, tables = [], []
+    for start in range(0, n_rows, rows_per_chunk):
+        chunk = rows[start : start + rows_per_chunk]
+        if block_tables is not None:
+            with annotate("planar.table", device):
+                c_dev, cum_dev = block_tables(chunk)
+                tables.append(c_dev.cpu().numpy())
+        code, lengths = _encode_rows(chunk, c_dev, cum_dev, capacity, **total)
+        with annotate("planar.payloads", device):
+            payloads += _payloads(code, lengths)
+    with annotate("planar.pack", device):
+        return fmt.pack(
+            k=k,
+            alphabet=a,
+            block_len=L,
+            n_symbols=n,
+            payloads=payloads,
+            tables_c=np.concatenate(tables) if c is None else c,
+            per_block_tables=c is None,
+            with_checksums=config.with_checksums,
+            device=device,
+        )
 
 
 def encode(
@@ -202,8 +275,6 @@ def encode(
     does not encode there; ``chunk_symbols`` bounds the code matrix of
     each call, not the input."""
     symbols, a = _as_symbols(data, alphabet)
-    n = int(symbols.size)
-
     if config.raw_total:
         return _encode_raw(symbols, a, config, device)
 
@@ -246,96 +317,24 @@ def encode(
                 sync_tiles=config.sync_tiles, group_lanes=config.group_lanes,
                 device=device)
 
-    # planar: the input goes up once, in whole rows at its own width
-    L = config.block_len
-    n_rows = max(1, math.ceil(n / L))
-    row_dtype = _row_dtype(symbols, a)
-    with annotate("planar.upload", device):
-        sym = _upload_symbols(symbols, n_rows * L, row_dtype,
-                              config.chunk_symbols, device)
+    # planar: one shared table, counted on the device unless supplied
     if table is None:
-        with annotate("planar.histogram", device):
-            counts = planar_histogram(sym[:n], a).cpu().numpy().astype(
-                np.uint64)
-            if n == 0:
-                counts[0] = 1  # an empty input: any valid table
-            with annotate("planar.table", device):
-                table = build_table_pow2(counts, config.k)
-    pad = int(np.argmax(table.c))
-    with annotate("planar.pad", device):
-        _pad(sym, n, pad)
-    with annotate("planar.upload", device):
-        c = torch.from_numpy(table.c.astype(np.int64)).to(device)
-        cum = torch.from_numpy(table.cum.astype(np.int64)).to(device)
-    rows = sym.view(n_rows, L)
-    rows_per_chunk = max(1, config.chunk_symbols // L)
-    capacity = default_capacity(L, table.k)
-    payloads = []
-    for start in range(0, n_rows, rows_per_chunk):
-        code, lengths = _encode_rows(rows[start : start + rows_per_chunk],
-                                     c, cum, table.k, capacity)
-        with annotate("planar.payloads", device):
-            payloads += _payloads(code, lengths)
-    with annotate("planar.pack", device):
-        return fmt.pack(
-            k=table.k,
-            alphabet=a,
-            block_len=L,
-            n_symbols=n,
-            payloads=payloads,
-            tables_c=table.c,
-            per_block_tables=False,
-            with_checksums=config.with_checksums,
-            device=device,
-        )
+        return _encode_planar(symbols, a, config, device, k=config.k)
+    return _encode_planar(symbols, a, config, device, k=table.k, c=table.c)
 
 
 def _encode_raw(symbols: np.ndarray, a: int, config: CodecConfig,
                 device) -> bytes:
     """Planar encode with the raw histogram as the table (any u32 total):
     the reference ``FreqTable``'s semantics (examples/sample_impl.rs:58-69),
-    coded with exact division (:func:`.blocks.encode_blocks_div`)."""
-    n = int(symbols.size)
-    L = config.block_len
+    coded with exact division."""
     counts = np.bincount(symbols, minlength=a).astype(np.uint64)
     if counts.sum() == 0:
         counts[0] = 1
     if counts.sum() >= 1 << 32:
         raise ConfigError("raw_total: corpus count exceeds u32 total_freq")
-    c = counts.astype(np.uint32)
-    cum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-    total = int(counts.sum())
-
-    n_rows = max(1, math.ceil(n / L))
-    sym = _upload_symbols(symbols, n_rows * L, _row_dtype(symbols, a),
-                          config.chunk_symbols, device)
-    _pad(sym, n, int(np.argmax(c)))
-    rows = sym.view(n_rows, L)
-    # worst case ~5 bytes a symbol at 32-bit totals, plus the flush
-    capacity = -(-(6 * L + 8) // 4) * 4
-    rows_per_chunk = max(1, config.chunk_symbols // L)
-    c_dev = torch.from_numpy(c.astype(np.int64)).to(device)
-    cum_dev = torch.from_numpy(cum).to(device)
-    payloads = []
-    for start in range(0, n_rows, rows_per_chunk):
-        code, lengths = encode_blocks_div(
-            rows[start : start + rows_per_chunk], c_dev, cum_dev, total,
-            capacity=capacity)
-        lengths_np = lengths.cpu().numpy()
-        if int(lengths_np.max()) > capacity:
-            raise AssertionError("raw-total capacity bound exceeded")
-        payloads += _payloads(code.cpu().numpy(), lengths_np)
-    return fmt.pack(
-        k=0,
-        alphabet=a,
-        block_len=L,
-        n_symbols=n,
-        payloads=payloads,
-        tables_c=c,
-        per_block_tables=False,
-        with_checksums=config.with_checksums,
-        device=device,
-    )
+    return _encode_planar(symbols, a, config, device, k=0,
+                          c=counts.astype(np.uint32))
 
 
 def decode(blob: bytes, *, verify_checksums: bool = True,
@@ -441,25 +440,26 @@ def _decode_range_rans16(cont: fmt.Container, start: int, count: int,
 
 
 def _decode_container(cont: fmt.Container, device) -> np.ndarray:
-    """Profile dispatch for a parsed container."""
+    """Profile dispatch for a parsed container; the planar decode of every
+    table form (shared, raw total, one table a block) in chunks of
+    ``_CHUNK_SYMBOLS``."""
     if cont.profile == "rans16":
         return rans_codec.decode(cont, device=device)
-    if cont.per_block_tables:
-        from .adaptive import decode_adaptive_container
-
-        return decode_adaptive_container(cont, device)
     b, L = cont.n_blocks, cont.block_len
+    per_block = cont.per_block_tables
     with annotate("planar.table", device):
         c = np.asarray(cont.tables_c, np.int64)
         # a raw-total container (FLAG_RAW_TOTAL) has k = 0
         total = {"k": cont.k} if cont.k else {"total": int(c.sum())}
-        c_dev = torch.from_numpy(c).to(device)
-        cum_dev = torch.from_numpy(
-            np.concatenate([[0], np.cumsum(c)])).to(device)
+        if not per_block:
+            c_dev, cum_dev = _device_tables(c, device)
     rows_per_chunk = max(1, _CHUNK_SYMBOLS // L)
     out = np.empty(b * L, np.int32)
     for start in range(0, b, rows_per_chunk):
         stop = min(start + rows_per_chunk, b)
+        if per_block:
+            with annotate("planar.table", device):
+                c_dev, cum_dev = _device_tables(c[start:stop], device)
         with annotate("planar.payload_bytes", device):
             code, offs, lens = payload_buffers(
                 cont.payloads[start:stop], cont.lengths[start:stop], device)

@@ -4,8 +4,9 @@
 Each block's payload must equal the JAX ``encode_blocks``' and the golden
 coder's stream byte for byte; the port decodes the JAX code matrices and
 the JAX package decodes the port's; a capacity too small gives the same
-cut streams and lengths as the reference, and the api's retry gives the
-full payloads.  Each JAX output is computed once per geometry.
+cut streams and lengths as the reference under each table form (shared,
+raw total, per block), and the api's retry gives the full payloads.  Each
+JAX output is computed once per geometry.
 """
 
 import numpy as np
@@ -14,9 +15,11 @@ import torch
 
 import jax.numpy as jnp
 
+from range_coder_rust_tpu import adaptive as jad
 from range_coder_rust_tpu import blocks as jblocks
 from range_coder_rust_tpu.native import golden
-from range_coder_rust_tpu_torch import api, blocks
+from range_coder_rust_tpu_torch import adaptive as tad
+from range_coder_rust_tpu_torch import api, blocks, kernels
 from range_coder_rust_tpu_torch.models.table import (build_table_pow2,
                                                      table_from_data_pow2)
 from range_coder_rust_tpu_torch.ops import lookup
@@ -99,29 +102,61 @@ def test_decode_both_ways():
         np.testing.assert_array_equal(np.asarray(back), rows)
 
 
-def test_cut_capacity_matches_reference_and_retry_restores():
-    """A capacity below the longest block: the same cut streams and true
-    lengths as the reference (bytes past the capacity dropped, none
-    written out of bounds); the api's retry doubles it until every block
-    fits and gives the full payloads."""
-    rows, t, cap, _, (tcode, tlen) = _coded("c1_runs_k16_B4_L64")
-    small = 64
-    assert int(tlen.max()) > small
-    jcode, jlen = jblocks.encode_blocks(
-        jnp.asarray(rows), jnp.asarray(t.c), jnp.asarray(t.cum), k=t.k,
-        capacity=small)
-    code, lengths = blocks.encode_blocks(
-        torch.from_numpy(rows), torch.from_numpy(t.c.astype(np.int64)),
-        torch.from_numpy(t.cum.astype(np.int64)), k=t.k, capacity=small)
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def _cut_form(form: str):
+    """The ``c1_runs`` rows under one table form: ``(rows, c, cum, total
+    keyword, full capacity, JAX encode at a capacity -> (code,
+    lengths))``, the port's tables as the api uploads them."""
+    rows, t, cap, _, _ = _coded("c1_runs_k16_B4_L64")
+    jrows = jnp.asarray(rows)
+    if form == "per_block":
+        c, cum = tad.block_tables(torch.from_numpy(rows), alphabet=16, k=12)
+        scan = jad.encode_scan_adaptive(
+            jrows, *jad.block_tables(jrows, alphabet=16, k=12), k=12)
+        return rows, c, cum, {"k": 12}, blocks.default_capacity(64, 12), (
+            lambda capacity: (jblocks.compact_emissions(
+                *scan[:4], capacity=capacity), scan[4]))
+    if form == "raw_total":  # the table's raw counts, total 100015
+        c = np.concatenate([[100_000], np.ones(15)]).astype(np.uint32)
+        cum = np.concatenate([[0], np.cumsum(c)]).astype(np.uint32)
+        total = int(cum[-1])
+        full = -(-(6 * 64 + 8) // 4) * 4  # the raw path's capacity
+        return rows, _t(c), _t(cum), {"total": total}, full, (
+            lambda capacity: jblocks.encode_blocks_div(
+                jrows, jnp.asarray(c), jnp.asarray(cum), total,
+                capacity=capacity))
+    return rows, _t(t.c), _t(t.cum), {"k": t.k}, cap, (
+        lambda capacity: jblocks.encode_blocks(
+            jrows, jnp.asarray(t.c), jnp.asarray(t.cum), k=t.k,
+            capacity=capacity))
+
+
+@pytest.mark.parametrize("form,small", [("shared", 64), ("raw_total", 64),
+                                        ("per_block", 16)])
+def test_cut_capacity_matches_reference_and_retry_restores(form, small):
+    """A capacity below the longest block, under each table form (a
+    shared 2^k table, a raw u32 total, one 2^k table a block): the same
+    cut streams and true lengths as the reference (bytes past the
+    capacity dropped, none written out of bounds); the api's retry
+    doubles it until every block fits and gives the reference's full
+    payloads."""
+    rows, c, cum, total, full, jax_encode = _cut_form(form)
+    fcode, flen = map(np.asarray, jax_encode(full))
+    assert int(flen.max()) > small
+    jcode, jlen = jax_encode(small)
+    code, lengths = kernels.planar_encode_blocks(
+        torch.from_numpy(rows), c, cum, capacity=small, **total)
     np.testing.assert_array_equal(lengths.numpy(), np.asarray(jlen))
     np.testing.assert_array_equal(code.numpy(), np.asarray(jcode))
-    rcode, rlen = api._encode_rows(
-        torch.from_numpy(rows), torch.from_numpy(t.c.astype(np.int64)),
-        torch.from_numpy(t.cum.astype(np.int64)), t.k, small)
-    assert rcode.shape[1] >= int(tlen.max()) and rcode.shape[1] % small == 0
-    np.testing.assert_array_equal(rlen, tlen)
+    rcode, rlen = api._encode_rows(torch.from_numpy(rows), c, cum, small,
+                                   **total)
+    assert rcode.shape[1] >= int(flen.max()) and rcode.shape[1] % small == 0
+    np.testing.assert_array_equal(rlen, flen)
     for b in range(rows.shape[0]):
-        assert rcode[b, : rlen[b]].tobytes() == tcode[b, : tlen[b]].tobytes()
+        assert rcode[b, : rlen[b]].tobytes() == fcode[b, : flen[b]].tobytes()
 
 
 def test_windows_read_zero_past_the_row():

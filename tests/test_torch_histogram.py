@@ -3,7 +3,8 @@ kernel's path (``csrc/planar_histogram_path.cuh``, compiled alone with
 g++; the kernel itself runs only on a card,
 ``tests/test_torch_kernels_gpu.py``), the plain version against
 ``np.bincount``, and ``api.encode``'s order: the input uploaded once at
-its row width, counted there, then padded there."""
+its row width, counted there, then padded there (the raw-total and
+per-block encodes upload and pad the same way, with no histogram)."""
 
 import ctypes
 import subprocess
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 import range_coder_rust_tpu_torch as rt
-from range_coder_rust_tpu_torch import api, kernels
+from range_coder_rust_tpu_torch import adaptive, api, kernels
 from range_coder_rust_tpu_torch.kernels import (HISTOGRAM_PATHS,
                                                 histogram_plain,
                                                 planar_histogram)
@@ -136,20 +137,36 @@ def test_encode_takes_strided_views():
                                           view)
 
 
-def test_encode_uploads_then_counts_then_pads():
+@pytest.mark.parametrize("form", ["shared", "raw_total", "per_block"])
+def test_encode_uploads_then_counts_then_pads(form):
     """The shared-table planar encode opens its phases in this order: the
     input's upload, the histogram (the table inside), the pad of the last
     row, the table's upload, then the coder's chunks; the input goes up
-    once, before any chunk is coded."""
+    once, before any chunk is coded.  The raw-total and per-block encodes
+    go through the same encode: one upload before any chunk, a pad, and
+    no histogram (raw counts are taken on the host, per-block tables a
+    chunk)."""
     data = zipf(5 * 64 + 17, 40, 3, dtype=np.uint8)
-    cfg = rt.CodecConfig(block_len=64, chunk_symbols=128)
+    cfg = rt.CodecConfig(block_len=64, chunk_symbols=128,
+                         raw_total=form == "raw_total")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        rt.encode(data, config=cfg, device="cpu")
+        if form == "per_block":
+            adaptive.encode_adaptive(data, block_len=64, device="cpu")
+        else:
+            rt.encode(data, config=cfg, device="cpu")
     order = [e.name for e in sorted(prof.events(),
                                     key=lambda e: e.time_range.start)
              if e.name.startswith("planar.")]
-    assert order[:5] == ["planar.upload", "planar.histogram", "planar.table",
-                         "planar.pad", "planar.upload"]
-    assert order.count("planar.upload") == 2
-    assert order.count("planar.encode_steps") == 3
+    if form == "shared":
+        assert order[:5] == ["planar.upload", "planar.histogram",
+                             "planar.table", "planar.pad", "planar.upload"]
+        assert order.count("planar.upload") == 2
+        assert order.count("planar.encode_steps") == 3
+        return
+    first_chunk = order.index("planar.encode_steps")
+    assert order[0] == "planar.upload"
+    assert order.index("planar.pad") < first_chunk
+    assert "planar.histogram" not in order
+    assert order.count("planar.upload") == 1 + (form == "raw_total")
+    assert "planar.upload" not in order[first_chunk:]
