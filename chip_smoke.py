@@ -63,8 +63,13 @@ Phases (any failure ends the run with a non-zero exit):
    container's, the decode of the container's payloads where they lie
    (joined, as ``api.decode`` uploads them) and of their ``(B, C)``
    matrix equal to the rows, each kernel's time (CUDA events; the
-   decode's in both forms) beside the plain version's and its bound, and
-   the device kernels and busy share of one kernel round trip
+   decode's in both forms) beside the plain version's and its bound, the
+   compaction kernel on the encode kernel's output (the payloads joined
+   at their exclusive prefix sum, equal to its plain version's and to the
+   container's payload bytes; its time beside the plain version's,
+   ``torch.masked_select``'s alone and its byte bound; the encode
+   launches it once a device call, on the card), and the device kernels
+   and busy share of one kernel round trip
    (``torch.profiler``); then ("9 planar histogram") the histogram
    kernel at the planar cells' shapes: the main path's corpus on the card
    (u8, 256 bins, the ``warp_private`` path) and 10^8 Zipf(1.0) u16
@@ -140,6 +145,8 @@ REPLACES = {
     "planar_decode": "range_coder_rust_tpu/blocks.py:319",
     # no Pallas kernel: the reference's host np.bincount
     "planar_histogram": "range_coder_rust_tpu/api.py:208",
+    # no Pallas kernel: the reference's host trim of each block
+    "planar_compact": "range_coder_rust_tpu/api.py:245",
 }
 SOURCES = {
     "rans_encode": f"{PKG}/csrc/rans_encode.cu",
@@ -147,6 +154,7 @@ SOURCES = {
     "planar_encode": f"{PKG}/csrc/planar_encode.cu",
     "planar_decode": f"{PKG}/csrc/planar_decode.cu",
     "planar_histogram": f"{PKG}/csrc/planar_histogram.cu",
+    "planar_compact": f"{PKG}/csrc/planar_compact.cu",
 }
 #: H100 SXM peaks: device memory bytes/s (NVIDIA's data sheet), and 32-bit
 #: integer operations/s: 64 INT32 lanes a SM (NVIDIA's Hopper architecture
@@ -473,7 +481,7 @@ def round_trip(smoke: Smoke, what: str, data, cfg) -> dict:
                              f"({out.dtype} {out.shape})")
     if (min(counts["rans_encode"], counts["rans_decode"]) < 1
             or counts["planar_encode"] or counts["planar_decode"]
-            or counts["planar_histogram"]):
+            or counts["planar_histogram"] or counts["planar_compact"]):
         raise AssertionError(f"{what}: a rans16 kernel never launched, or "
                              f"a planar one did: {counts}")
     n = data.size
@@ -690,7 +698,8 @@ def planar_round_trip(smoke, what, data, encode, device="cuda",
     scalar coder, and the wall per step of the block coder (each device
     call of ``chunk_symbols`` symbols runs L + 1 encode steps and L decode
     steps).  On a card each device call launches each planar coder kernel
-    once (the encode again for a capacity retry) and no rans16 kernel,
+    once (the encode again for a capacity retry) and the compaction once,
+    and no rans16 kernel,
     and the encode launches the histogram kernel once on the path
     ``histogram`` names (``None``: the table's counts are not taken on
     the card)."""
@@ -716,6 +725,7 @@ def planar_round_trip(smoke, what, data, encode, device="cuda",
         hist_want[histogram] = 1
     if (counts["rans_encode"] or counts["rans_decode"]
             or counts["planar_decode"] != (calls if on_card else 0)
+            or counts["planar_compact"] != (calls if on_card else 0)
             or not (counts["planar_encode"] >= calls if on_card
                     else counts["planar_encode"] == 0)
             or placed != hist_want):
@@ -760,10 +770,11 @@ def planar_path(smoke, data, device="cuda") -> dict:
     c = torch.from_numpy(np.asarray(cont.tables_c, np.int64))
     cum = torch.cat([c.new_zeros(1), c.cumsum(0)])
     nb = min(1024, data.size // L)
-    (code, lengths), cpu_s = timed(lambda: api._encode_rows(
+    (code, lengths, _), cpu_s = timed(lambda: api._encode_rows(
         torch.from_numpy(data[: nb * L].reshape(nb, L)),
         c, cum, rt.blocks.default_capacity(L, cont.k), k=cont.k), "cpu")
-    if api._payloads(code, lengths) != cont.payloads[:nb]:
+    if (not np.array_equal(lengths.numpy(), cont.lengths[:nb])
+            or joined(code, lengths) != b"".join(cont.payloads[:nb])):
         raise AssertionError("planar path: the CPU's first blocks differ")
     smoke.say(f"planar path: the first {nb} blocks encoded again on the "
               f"CPU ({cpu_s:.4f} s): payloads byte-equal")
@@ -822,11 +833,12 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
     lens = len_k.cpu().numpy()
     err = {"planar_encode": max(testing._max_abs(code_k, code_p),
                                 testing._max_abs(len_k, len_p))}
-    if (err["planar_encode"]
-            or api._payloads(code_k.cpu().numpy(), lens)
-            != cont.payloads[:nb]):
+    if (err["planar_encode"] or not np.array_equal(lens, cont.lengths[:nb])
+            or joined(code_k, len_k) != b"".join(cont.payloads[:nb])):
         raise AssertionError(f"planar encode kernel: {err}, or its payloads "
                              "differ from the container's")
+    compact = planar_compact_check(smoke, code_k, len_k, cont, nb)
+    err["planar_compact"] = compact.pop("err")
     # the decode's two input forms: the payloads where they lie (joined,
     # with offsets and lengths, as api.decode uploads them) and the
     # (B, C) matrix of the rows, C rounded up to 1 KiB
@@ -893,7 +905,7 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     res = {"times": times, "bounds": bounds, "err": err,
-           "matrix_ms": matrix_ms,
+           "matrix_ms": matrix_ms, "compact": compact,
            "device_kernels": sorted({e.name[:60] for e in events}),
            "device_events": len(events),
            "busy_share": busy_us / (wall * 1e6) if events else None}
@@ -901,6 +913,61 @@ def planar_kernels(smoke, data, cont, device="cuda") -> dict:
               f"{res['device_events']} device events {res['device_kernels']},"
               f" busy share {res['busy_share']} of {wall * 1e3:.4f} ms "
               f"(None would mean: the trace held no device time)")
+    return res
+
+
+def joined(code, lengths) -> bytes:
+    """The payloads of a ``(B, C)`` code matrix (``lengths``: ``(B,)``
+    int64 on its device) joined in row order by
+    ``kernels.planar_compact`` (its plain version for a CPU matrix)."""
+    import torch
+
+    from range_coder_rust_tpu_torch import kernels
+
+    offsets = torch.cumsum(lengths, 0) - lengths
+    return kernels.planar_compact(code, lengths, offsets, size=int(
+        lengths.sum())).cpu().numpy().tobytes()
+
+
+def planar_compact_check(smoke, code, lengths, cont, nb: int) -> dict:
+    """Phase 9's compaction: the encode kernel's ``(B, C)`` output for the
+    first device call (``nb`` blocks) joined by the compaction kernel at
+    the exclusive prefix sum of its lengths (offsets at any byte, lengths
+    off the 4-byte grid), against its plain version on the same card
+    tensors (no difference allowed) and the container's payload bytes.
+    Returns the kernel's ms (CUDA events, mean of 20 after a warm-up), the
+    plain version's (host clock, one run), ``torch.masked_select``'s alone
+    on the same matrix and mask (``library_ms``, CUDA events; a yardstick
+    the port never calls) and the bound: the payload bytes read and
+    written once and the lengths and offsets read, at 3.35 TB/s."""
+    import torch
+
+    from range_coder_rust_tpu_torch import kernels, testing
+
+    offsets = torch.cumsum(lengths, 0) - lengths
+    size = int(lengths.sum())
+    got = kernels.planar_compact(code, lengths, offsets, size=size)
+    want, plain_ms = plain_wall(lambda: kernels.planar_compact_plain(
+        code, lengths, offsets, size=size))
+    err = testing._max_abs(got, want)
+    if err or got.cpu().numpy().tobytes() != b"".join(cont.payloads[:nb]):
+        raise AssertionError(f"planar compaction: {err} from the plain "
+                             "version, or not the container's payloads")
+    mask = torch.arange(code.shape[1], device=code.device) < lengths[:, None]
+    res = {"rows": nb, "bytes": size, "err": err,
+           "ms": cuda_ms(lambda: kernels.planar_compact(
+               code, lengths, offsets, size=size), 20),
+           "plain_ms": plain_ms,
+           "library_ms": cuda_ms(lambda: torch.masked_select(code, mask), 20),
+           "bound_ms": (2 * size + nbytes(lengths, offsets))
+           / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes"}
+    smoke.say(f"planar_compact first device call B={nb} C={code.shape[1]}: "
+              f"{size} payload bytes == the plain version's == the "
+              f"container's; kernel {res['ms']:.4f} ms, plain PyTorch on "
+              f"the card {plain_ms:.4f} ms, torch.masked_select alone "
+              f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
+              f"(bytes)")
     return res
 
 
@@ -1047,7 +1114,8 @@ def sharded_path(smoke, main: dict, device="cuda") -> dict:
                                        "rans_decode": shards,
                                        "planar_encode": 0,
                                        "planar_decode": 0,
-                                       "planar_histogram": 0}:
+                                       "planar_histogram": 0,
+                                       "planar_compact": 0}:
         raise AssertionError(f"sharded rans16 launches {counts}")
     smoke.say(f"sharded rans16 over {shards} shards on {device}: encode "
               f"{enc_s * 1e3:.4f} ms, decode {dec_s * 1e3:.4f} ms (host "
@@ -1147,6 +1215,7 @@ def rank_main(rank: int, port: int, world: int, tmp: str, job: dict) -> None:
     res["planar_launches"] = launched = rt.launch_counts()
     if (launched["rans_encode"] or launched["rans_decode"]
             or launched["planar_decode"] or launched["planar_histogram"]
+            or launched["planar_compact"]
             or launched["planar_encode"] < (dev.startswith("cuda"))):
         raise AssertionError(f"planar multihost launched {launched}")
     if rank == 0:
@@ -1245,7 +1314,7 @@ def multihost_path(smoke, main: dict, tmp: str, device="cuda",
                                 else "planar_launches"][k] for r in ranks]
                          for k in ("rans_encode", "rans_decode",
                                    "planar_encode", "planar_decode",
-                                   "planar_histogram")}}
+                                   "planar_histogram", "planar_compact")}}
 
 
 def cli_path(smoke, main: dict, tmp: str, device="cuda") -> dict:
@@ -1432,13 +1501,14 @@ def main() -> int:
                                  "dec_step_ms")}
         for name, r in {"main": planar, **other}.items()}
         | {"kernels": {k: planar["kernels"][k] for k in (
-            "times", "bounds", "matrix_ms", "device_events",
+            "times", "bounds", "matrix_ms", "compact", "device_events",
             "busy_share")}, "histogram": hist}))
     for name in ("rans_encode", "rans_decode"):
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
     for name in ("planar_encode", "planar_decode"):
         err[name] = max(err[name], planar["kernels"]["err"][name])
     err["planar_histogram"] = max(r["err"] for r in hist.values())
+    err["planar_compact"] = planar["kernels"]["err"]["planar_compact"]
 
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "range_coder_rust_tpu"))
@@ -1490,7 +1560,19 @@ def main() -> int:
          "other_paths_launches": {p: r["counts"]["planar_histogram"]
                                   for p, r in other.items()},
          "sharded_launches": sharded["counts"]["planar_histogram"],
-         "multihost_launches": multi["launches"]["planar_histogram"]}]}
+         "multihost_launches": multi["launches"]["planar_histogram"]}, {
+         "name": "planar_compact", "route": "cuda",
+         "source": SOURCES["planar_compact"],
+         "replaces": REPLACES["planar_compact"],
+         "launches": planar["counts"]["planar_compact"],
+         "max_abs_err": err["planar_compact"],
+         **{k: planar["kernels"]["compact"][k] for k in (
+             "rows", "bytes", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")},
+         "other_paths_launches": {p: r["counts"]["planar_compact"]
+                                  for p, r in other.items()},
+         "sharded_launches": sharded["counts"]["planar_compact"],
+         "multihost_launches": multi["launches"]["planar_compact"]}]}
     smoke.say("CLI walls (s): " + json.dumps(cli))
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

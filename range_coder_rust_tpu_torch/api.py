@@ -19,8 +19,10 @@ three table forms (shared, raw total, per block; :func:`_encode_planar`):
 it uploads the input once into a device buffer of whole ``(B, L)``
 blocks, counts it there for a shared table
 (:func:`.kernels.planar_histogram`), pads the last block there, runs the
-device coder over chunks of ``chunk_symbols`` of that buffer, trims the
-payloads by their lengths, and packs; one planar decode
+device coder over chunks of ``chunk_symbols`` of that buffer, joins each
+chunk's payloads on the device (:func:`.kernels.planar_compact`), copies
+only those bytes into one host payload area, and packs that area; one
+planar decode
 (:func:`_decode_container`) serves them too.  A block that overflows its
 capacity is encoded again with twice the room, never cut silently.
 Decodes and reads parse the container in place (``fmt.unpack(...,
@@ -30,8 +32,9 @@ phases run in named profiler regions (``planar.upload``, the input's and
 the table's; ``planar.histogram`` with ``planar.table`` inside; in a
 decode ``planar.table`` around the int64 table, its prefix sum and their
 upload; ``planar.pad``, the device fill of the last block,
-``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h``,
-``planar.payloads``, ``planar.payload_bytes``, ``planar.pack``;
+``planar.encode_steps`` / ``planar.decode_steps``, ``planar.d2h`` (the
+lengths and the joined payloads of an encode, the symbols of a decode),
+``planar.compact``, ``planar.payload_bytes``, ``planar.pack``;
 :func:`.utils.profiling.annotate`), as rans16's do in :mod:`.rans_codec`
 and the container's (``format.unpack``, ``format.crc32``) in
 :mod:`.format`.
@@ -51,7 +54,7 @@ from . import rans_codec
 from .blocks import (decode_payloads, default_capacity, host_rows,
                      payload_buffers)
 from .errors import ConfigError, ZeroFrequency
-from .kernels import planar_encode_blocks, planar_histogram
+from .kernels import planar_compact, planar_encode_blocks, planar_histogram
 from .kernels.histogram import ROW_TYPES
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
@@ -167,10 +170,12 @@ def _pad(sym: torch.Tensor, n: int, pad_symbol: int) -> None:
 
 
 def _encode_rows(sym: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
-                 capacity: int, **total) -> tuple[np.ndarray, np.ndarray]:
+                 capacity: int, **total
+                 ) -> tuple[torch.Tensor, torch.Tensor, np.ndarray]:
     """Encode ``(B, L)`` device rows with a total of ``2**k`` or a raw u32
     ``total`` (one keyword), again with twice the capacity while a block
-    overflows; returns the code matrix and the lengths on the host."""
+    overflows; returns the code matrix and the lengths on the device, and
+    the lengths on the host."""
     device = sym.device
     while True:
         with annotate("planar.encode_steps", device):
@@ -179,12 +184,52 @@ def _encode_rows(sym: torch.Tensor, c: torch.Tensor, cum: torch.Tensor,
         with annotate("planar.d2h", device):
             lengths_np = lengths.cpu().numpy()
             if int(lengths_np.max()) <= capacity:
-                return code.cpu().numpy(), lengths_np
+                return code, lengths, lengths_np
         capacity *= 2  # rare adversarial blocks
 
 
-def _payloads(code: np.ndarray, lengths: np.ndarray) -> list:
-    return [code[i, : lengths[i]].tobytes() for i in range(code.shape[0])]
+class _HostArea:
+    """The payload area of one encode on the host, filled a chunk at a
+    time: each chunk's payloads are joined on the device
+    (:func:`.kernels.planar_compact`) and copied here in one D2H of just
+    their bytes.  Its room is set from the first chunk's bytes a row, a
+    quarter more, and grows (the one copy of what is there) only where a
+    later chunk codes longer."""
+
+    def __init__(self, n_rows: int):
+        self.buf = np.empty(0, np.uint8)
+        self.used = 0
+        self.lengths = np.empty(n_rows, np.int64)
+
+    def add(self, start: int, code: torch.Tensor, lengths: torch.Tensor,
+            lengths_np: np.ndarray) -> None:
+        """Rows ``start, start + 1, ...`` of the encode: their code matrix
+        and lengths on the device, and the lengths on the host."""
+        device, rows = code.device, lengths_np.size
+        offsets = np.zeros(rows, np.int64)
+        np.cumsum(lengths_np[:-1], out=offsets[1:])
+        size = int(offsets[-1] + lengths_np[-1])
+        need = self.used + size
+        if need > self.buf.size:
+            rest = self.lengths.size - start - rows
+            room = max(need + rest * -(-5 * size // (4 * rows)),
+                       2 * self.buf.size)
+            grown = np.empty(room, np.uint8)
+            grown[: self.used] = self.buf[: self.used]
+            self.buf = grown
+        with annotate("planar.compact", device):
+            joined = planar_compact(code, lengths,
+                                    torch.from_numpy(offsets).to(device),
+                                    size=size)
+        with annotate("planar.d2h", device):
+            torch.from_numpy(self.buf[self.used : need]).copy_(joined)
+        self.lengths[start : start + rows] = lengths_np
+        self.used = need
+
+    def payloads(self) -> fmt.PayloadArea:
+        offsets = np.zeros(self.lengths.size + 1, np.int64)
+        np.cumsum(self.lengths, out=offsets[1:])
+        return fmt.PayloadArea(memoryview(self.buf)[: self.used], offsets)
 
 
 def _device_tables(c, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -203,9 +248,10 @@ def _encode_planar(symbols: np.ndarray, a: int, config: CodecConfig, device,
     ``block_len``, ``chunk_symbols`` and ``with_checksums``: the input
     goes up once into a device buffer of whole ``(B, L)`` rows at its
     row width, is padded there, and is coded in chunks of that buffer
-    (:func:`_encode_rows`); the payloads are trimmed and packed.  The
-    table form is one shared table of total ``2**k`` (its counts ``c``,
-    or without ``c`` normalised from the uploaded input's
+    (:func:`_encode_rows`); each chunk's payloads are joined on the device
+    and copied into one host area (:class:`_HostArea`), which is packed.
+    The table form is one shared table of total ``2**k`` (its counts
+    ``c``, or without ``c`` normalised from the uploaded input's
     :func:`.kernels.planar_histogram`), a raw u32 total (``k == 0``, the
     raw counts ``c``), or one ``2**k`` table a block (``block_tables``:
     a chunk's device rows -> their ``(c, cum)``).  The pad is the shared
@@ -233,23 +279,22 @@ def _encode_planar(symbols: np.ndarray, a: int, config: CodecConfig, device,
     capacity = default_capacity(L, k) if k else -(-(6 * L + 8) // 4) * 4
     rows = sym.view(n_rows, L)
     rows_per_chunk = max(1, config.chunk_symbols // L)
-    payloads, tables = [], []
+    area, tables = _HostArea(n_rows), []
     for start in range(0, n_rows, rows_per_chunk):
         chunk = rows[start : start + rows_per_chunk]
         if block_tables is not None:
             with annotate("planar.table", device):
                 c_dev, cum_dev = block_tables(chunk)
                 tables.append(c_dev.cpu().numpy())
-        code, lengths = _encode_rows(chunk, c_dev, cum_dev, capacity, **total)
-        with annotate("planar.payloads", device):
-            payloads += _payloads(code, lengths)
+        area.add(start, *_encode_rows(chunk, c_dev, cum_dev, capacity,
+                                      **total))
     with annotate("planar.pack", device):
         return fmt.pack(
             k=k,
             alphabet=a,
             block_len=L,
             n_symbols=n,
-            payloads=payloads,
+            payloads=area.payloads(),
             tables_c=np.concatenate(tables) if c is None else c,
             per_block_tables=c is None,
             with_checksums=config.with_checksums,

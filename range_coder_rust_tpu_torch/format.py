@@ -49,7 +49,8 @@ offsets in it (:class:`PayloadArea`), and only the public form
 (``copy=True``, the default) copies them out as ``bytes``, counted by
 :func:`copied_payload_bytes`.  The api's decodes and reads take the
 in-place form (``copy=False``) and slice the area only where they need a
-payload.
+payload.  ``pack`` takes the payloads as a list or as such an area (the
+planar encode's, joined on the device), and writes the same bytes.
 
 ``unpack`` runs in a named profiler region ``format.unpack``, and every
 CRC32 pass (``pack``'s checksums, ``unpack``'s verify, a range read's
@@ -66,7 +67,7 @@ import struct
 import zlib
 from collections.abc import Iterator, Sequence
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -182,7 +183,7 @@ def pack(
     alphabet: int,
     block_len: int,
     n_symbols: int,
-    payloads: List[bytes],
+    payloads,
     tables_c: np.ndarray,
     per_block_tables: bool = False,
     with_checksums: bool = True,
@@ -191,7 +192,10 @@ def pack(
     device=None,
 ) -> bytes:
     """Assemble a container from per-block payloads and table(s).
-    ``device`` names where the caller codes, for the profiler regions."""
+    ``payloads`` is a list of byte buffers, one a block, or a
+    :class:`PayloadArea` (the planar encode's payloads joined in one
+    buffer); both give the same bytes.  ``device`` names where the caller
+    codes, for the profiler regions."""
     b = len(payloads)
     if b < 1:
         raise ValueError("need at least one block")
@@ -218,18 +222,22 @@ def pack(
     if tables_c.shape != want_shape:
         raise ValueError(f"tables_c shape {tables_c.shape} != {want_shape}")
 
-    out = bytearray()
-    out += _HEADER.pack(
-        MAGIC, VERSION, flags, k, glog, alphabet, block_len, n_symbols, b
-    )
-    lengths = np.array([len(p) for p in payloads], dtype="<u4")
-    out += lengths.tobytes()
-    out += np.ascontiguousarray(tables_c, dtype=_table_dtype(k)).tobytes()
+    if isinstance(payloads, PayloadArea):
+        lengths = np.diff(payloads.offsets).astype("<u4")
+        body = [payloads.area]
+    else:
+        lengths = np.array([len(p) for p in payloads], dtype="<u4")
+        body = payloads
+    head = [
+        _HEADER.pack(
+            MAGIC, VERSION, flags, k, glog, alphabet, block_len, n_symbols, b
+        ),
+        lengths.tobytes(),
+        np.ascontiguousarray(tables_c, dtype=_table_dtype(k)).tobytes(),
+    ]
     if with_checksums:
-        out += crc32s(payloads, device).tobytes()
-    for p in payloads:
-        out += p
-    return bytes(out)
+        head.append(crc32s(payloads, device).tobytes())
+    return b"".join([*head, *body])
 
 
 def crc32s(payloads, device=None) -> np.ndarray:

@@ -1,17 +1,18 @@
 """Hand-written CUDA kernels, each beside its plain PyTorch version: the
-rans16 profile's encode and decode, and the planar profile's block coder
-and the histogram of its shared table.
+rans16 profile's encode and decode, and the planar profile's block coder,
+the histogram of its shared table and the compaction of its payloads.
 
 Each wrapper runs the plain version for a CPU tensor and launches its
 kernel (``csrc/*.cu``, built at first use by ``_build.py``) for a CUDA
-tensor.  It counts its kernel launches: the rans16 wrappers in
-``<wrapper>.launches``, the planar coder's by the table placement the
-kernel reported and the histogram's by its path, in
+tensor.  It counts its kernel launches: the rans16 wrappers and the
+compaction in ``<wrapper>.launches``, the planar coder's by the table
+placement the kernel reported and the histogram's by its path, in
 ``<wrapper>.placements``.
 """
 
 from .histogram import HISTOGRAM_PATHS, histogram_plain, planar_histogram
-from .planar import (PLACEMENTS, planar_decode_blocks, planar_decode_plain,
+from .planar import (PLACEMENTS, planar_compact, planar_compact_plain,
+                     planar_decode_blocks, planar_decode_plain,
                      planar_encode_blocks, planar_encode_plain)
 from .rans_decode import decode_plan, rans_decode_plain, rans_decode_tiled
 from .rans_encode import (encode_plan, rans_encode_plain, rans_encode_tiled,
@@ -22,7 +23,8 @@ from .vreg import prep_cum_vreg
 WRAPPERS = {"rans_encode": rans_encode_tiled, "rans_decode": rans_decode_tiled,
             "planar_encode": planar_encode_blocks,
             "planar_decode": planar_decode_blocks,
-            "planar_histogram": planar_histogram}
+            "planar_histogram": planar_histogram,
+            "planar_compact": planar_compact}
 
 
 #: the wrappers that count their launches by table placement or path
@@ -64,6 +66,8 @@ __all__ = [
     "histogram_plain",
     "launch_counts",
     "launch_placements",
+    "planar_compact",
+    "planar_compact_plain",
     "planar_decode_blocks",
     "planar_decode_plain",
     "planar_encode_blocks",

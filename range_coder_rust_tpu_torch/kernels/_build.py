@@ -67,6 +67,8 @@ SIGNATURES = {
                          _P, _I64, _I, _P, _P],
     # sym, sym_bytes, n, a_count, totals, stream -> path (int *, or null)
     "rc_planar_histogram": [_P, _I, _I64, _I, _P, _P, _P],
+    # code, row_bytes, lengths, offsets, out, size, n_rows, stream
+    "rc_planar_compact": [_P, _I64, _P, _P, _P, _I64, _I64, _P],
 }
 
 

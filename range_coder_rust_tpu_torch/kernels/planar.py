@@ -33,6 +33,12 @@ encode; lengths with the 8 flush bytes, bytes past ``capacity`` dropped,
 zeros past each length) or ``(B, block_len)`` int32 symbols (the decode).
 Per block, the payload is byte-identical to the scalar coder's with the
 same table (reference src/range_coder.rs:53-92).
+
+The encode's payloads leave the card joined: :func:`planar_compact`
+writes each row's first ``lengths[b]`` bytes of the code matrix at
+``offsets[b]`` of one flat area (``csrc/planar_compact.cu``; the plain
+version a boolean-mask gather), so only payload bytes are copied to the
+host.
 """
 
 from __future__ import annotations
@@ -375,3 +381,68 @@ def _count(wrapper, placed: int) -> None:
 #: table placement each launch reported
 planar_encode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)
 planar_decode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)
+
+
+def _check_compact(code: torch.Tensor, lengths: torch.Tensor,
+                   offsets: torch.Tensor, size: int) -> None:
+    if code.dim() != 2 or code.dtype != torch.uint8:
+        raise ValueError(f"code must be a 2-D uint8 matrix, got "
+                         f"{code.dtype} {tuple(code.shape)}")
+    for name, t in (("lengths", lengths), ("offsets", offsets)):
+        if t.dtype != torch.int64 or t.shape != code.shape[:1]:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} must be "
+                             f"({code.shape[0]},) int64")
+        if t.device != code.device:
+            raise ValueError(f"{name} and code must be on one device")
+    if size < 0:
+        raise ValueError(f"size {size} must be >= 0")
+
+
+def planar_compact_plain(code: torch.Tensor, lengths: torch.Tensor,
+                         offsets: torch.Tensor, *, size: int) -> torch.Tensor:
+    """The compaction in plain PyTorch: a boolean-mask gather of each
+    row's first ``lengths[b]`` bytes, written at ``offsets[b]`` of a
+    ``(size,)`` area, cut as the kernel cuts them (to the row and to the
+    area; an offset outside ``[0, size]`` writes nothing).  Bytes no row
+    covers read 0."""
+    _check_compact(code, lengths, offsets, size)
+    out = torch.zeros(size, dtype=torch.uint8, device=code.device)
+    room = torch.where((offsets >= 0) & (offsets <= size), size - offsets, 0)
+    ln = torch.minimum(lengths.clamp(min=0), room)
+    col = torch.arange(code.shape[1], device=code.device)
+    keep = col < ln[:, None]
+    out[(offsets[:, None] + col)[keep]] = code[keep]
+    return out
+
+
+def planar_compact(code: torch.Tensor, lengths: torch.Tensor,
+                   offsets: torch.Tensor, *, size: int) -> torch.Tensor:
+    """Join the payloads of a ``(B, C)`` uint8 code matrix into one
+    ``(size,)`` uint8 area: row ``b``'s first ``lengths[b]`` bytes at
+    ``offsets[b]`` (``(B,)`` int64 each, on the matrix's device).  With
+    ``offsets`` the exclusive prefix sum of ``lengths`` and ``size`` their
+    sum, the area is the payloads in row order, as the container holds
+    them.  The CUDA kernel for a CUDA tensor (bytes no row covers are left
+    unwritten), the plain version for a CPU tensor."""
+    if code.device.type == "cpu":
+        return planar_compact_plain(code, lengths, offsets, size=size)
+    if code.device.type != "cuda":
+        raise ValueError(f"no planar compaction for device {code.device}")
+    _check_compact(code, lengths, offsets, size)
+    code, lengths, offsets = (code.contiguous(), lengths.contiguous(),
+                              offsets.contiguous())
+    out = torch.empty(size, dtype=torch.uint8, device=code.device)
+    from ._build import check, library
+
+    with torch.cuda.device(code.device):
+        stream = torch.cuda.current_stream(code.device).cuda_stream
+        err = library().rc_planar_compact(
+            code.data_ptr(), code.shape[1], lengths.data_ptr(),
+            offsets.data_ptr(), out.data_ptr(), size, code.shape[0], stream)
+    check(err, "planar compaction kernel")
+    planar_compact.launches += 1
+    return out
+
+
+#: launches of the CUDA kernel (the plain version does not count)
+planar_compact.launches = 0

@@ -51,7 +51,7 @@ out = rt.decode(blob, device="cpu")
 assert out.dtype == np.uint8 and np.array_equal(out, data)
 assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
                              "planar_encode": 0, "planar_decode": 0,
-                             "planar_histogram": 0}
+                             "planar_histogram": 0, "planar_compact": 0}
 from range_coder_rust_tpu_torch import adaptive
 for blob in (rt.encode(data, config=rt.CodecConfig(block_len=64),
                        device="cpu"),

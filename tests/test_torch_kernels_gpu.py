@@ -64,7 +64,7 @@ def test_cuda_api_roundtrip_counts_launches(cuda_device):
     out = rt.decode(blob, device=cuda_device)
     assert rt.launch_counts() == {"rans_encode": 1, "rans_decode": 1,
                                   "planar_encode": 0, "planar_decode": 0,
-                                  "planar_histogram": 0}
+                                  "planar_histogram": 0, "planar_compact": 0}
     np.testing.assert_array_equal(out, data)
 
 
@@ -273,9 +273,9 @@ def test_cuda_planar_shared_tables_by_width_match_plain(a, encode_at,
 def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     """The planar profile on the card (the planar kernels): the container
     equals the CPU's and decodes back, each call one launch of each planar
-    coder kernel and no rans16 kernel; the shared table's histogram is one
-    launch of the histogram kernel (the raw and per-block tables keep
-    their host counts)."""
+    coder kernel and of the compaction and no rans16 kernel; the shared
+    table's histogram is one launch of the histogram kernel (the raw and
+    per-block tables keep their host counts)."""
     import range_coder_rust_tpu_torch as rt
     from range_coder_rust_tpu_torch import adaptive
 
@@ -294,7 +294,8 @@ def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
     assert rt.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
                                   "planar_encode": 1, "planar_decode": 1,
-                                  "planar_histogram": int(mode == "shared")}
+                                  "planar_histogram": int(mode == "shared"),
+                                  "planar_compact": 1}
 
 
 @pytest.mark.parametrize("per_group", [False, True])
@@ -325,7 +326,8 @@ def test_cuda_sharded_rans16_matches_single_call(per_group, cuda_device):
               out_dtype=torch.uint8)
     assert kernels.launch_counts() == {"rans_encode": 2, "rans_decode": 2,
                                        "planar_encode": 0, "planar_decode": 0,
-                                       "planar_histogram": 0}
+                                       "planar_histogram": 0,
+                                       "planar_compact": 0}
     n = int(one[1].sum())
     for got, want in zip((states, sizes, region, syncs),
                          (one[0], one[1], one[2][:n], one[3])):
@@ -430,4 +432,57 @@ def test_cuda_encode_histogram_matches_cpu(np_dtype, a, path, cuda_device):
         **dict.fromkeys(kernels.HISTOGRAM_PATHS, 0), path: 1}
     assert rt.launch_counts()["planar_encode"] == 5
     assert blob == rt.encode(data, alphabet=a, config=cfg, device="cpu")
+    np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)
+
+
+@pytest.mark.parametrize("row_bytes", [1544, 1543])
+def test_cuda_planar_compact_matches_plain(row_bytes, cuda_device):
+    """The compaction kernel on a 32768-row chunk of random bytes, with
+    lengths from 0 to the whole row (most off the 4-byte grid) at their
+    exclusive prefix sum (offsets at any byte): the area equals the plain
+    version's on the same card tensors and the rows' prefixes joined, in
+    one launch.  1544-byte rows (the encode's capacity at L = 512, k =
+    16) are read as words, 1543-byte rows byte by byte."""
+    B = 32768
+    gen = torch.Generator(device=cuda_device).manual_seed(row_bytes)
+    code = torch.randint(0, 256, (B, row_bytes), dtype=torch.uint8,
+                         generator=gen, device=cuda_device)
+    lengths = torch.randint(0, row_bytes + 1, (B,), generator=gen,
+                            device=cuda_device)
+    lengths[:4] = torch.tensor([0, row_bytes, 13, 1])
+    offsets = torch.cumsum(lengths, 0) - lengths
+    size = int(lengths.sum())
+    kernels.reset_launch_counts()
+    got = kernels.planar_compact(code, lengths, offsets, size=size)
+    assert kernels.launch_counts()["planar_compact"] == 1
+    want = kernels.planar_compact_plain(code, lengths, offsets, size=size)
+    assert torch.equal(got, want)
+    rows, lens = code.cpu().numpy(), lengths.cpu().numpy()
+    assert got.cpu().numpy().tobytes() == b"".join(
+        rows[b, : lens[b]].tobytes() for b in range(B))
+
+
+@pytest.mark.parametrize("what,calls", [("bytes", 16), ("tokens", 6),
+                                        ("rans16", 0)])
+def test_cuda_encode_launches_compaction_per_chunk(what, calls,
+                                                   cuda_device):
+    """A planar encode on the card joins each device call's payloads with
+    one launch of the compaction: 16 for 256 MiB of bytes, 6 for 10^8
+    GPT-2 token ids (u16 over 50257); a rans16 encode launches none.
+    Each container decodes back on the card."""
+    import range_coder_rust_tpu_torch as rt
+
+    gen = torch.Generator(device=cuda_device).manual_seed(calls)
+    n, a, cfg = {"bytes": (256 << 20, 256, rt.CodecConfig()),
+                 "tokens": (10**8, 50257, rt.CodecConfig()),
+                 "rans16": (1 << 22, 256, rt.CodecConfig(profile="rans16"))
+                 }[what]
+    data = torch.randint(0, a, (n,), generator=gen, device=cuda_device)
+    data = data.cpu().numpy().astype(np.uint8 if a <= 256 else np.uint16)
+    rt.reset_launch_counts()
+    blob = rt.encode(data, alphabet=a, config=cfg, device=cuda_device)
+    counts = rt.launch_counts()
+    assert counts["planar_compact"] == calls
+    if calls:
+        assert counts["planar_encode"] == calls
     np.testing.assert_array_equal(rt.decode(blob, device=cuda_device), data)

@@ -171,7 +171,8 @@ def test_argument_checks_raise():
                                  args.pop("cum"), **args)
     assert kernels.launch_counts() == {"rans_encode": 0, "rans_decode": 0,
                                        "planar_encode": 0, "planar_decode": 0,
-                                       "planar_histogram": 0}
+                                       "planar_histogram": 0,
+                                       "planar_compact": 0}
 
 
 def test_planar_paths_call_only_the_wrappers():

@@ -64,7 +64,7 @@ def _coded(profile, n=3000):
                 "rans16.parse", "rans16.decode_kernel", "rans16.table",
                 "rans16.pad", "format.unpack", "format.crc32"}),
     ("planar", {"planar.histogram", "planar.upload", "planar.encode_steps",
-                "planar.d2h", "planar.payloads", "planar.pack",
+                "planar.d2h", "planar.compact", "planar.pack",
                 "planar.payload_bytes", "planar.decode_steps",
                 "planar.table", "planar.pad", "format.unpack",
                 "format.crc32"}),
