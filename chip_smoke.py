@@ -76,8 +76,16 @@ Phases (any failure ends the run with a non-zero exit):
    token ids over GPT-2's 50257 drawn on the card (``block_smem``), each
    launch on its path and its counts equal to the plain version's on the
    same tensor, its time beside the plain version's, ``torch.bincount``'s
-   alone and its byte bound; phase 9's encode launches it once, on
-   ``warp_private``;
+   alone and its byte bound, and 10^8 Zipf(1.0) int32 ids over OLMo's
+   100352 (``global``: u64 atomics on the totals); phase 9's encode
+   launches it once, on ``warp_private``; then ("9 planar wide") a shard
+   of 2^25 + 777 uint32 ids over 100352 with ``CodecConfig(k=20)``: an
+   exact round trip whose histogram launch takes the ``global`` path,
+   whose coder launches find their table in device memory (``global``)
+   and report the ``pow2_wide`` total (the decode's double quotient),
+   sampled blocks against the scalar coder, and each planar kernel's ms
+   on its first device call beside the same kernel's on a k 16 call of
+   2^24 u16 ids over GPT-2's 50257;
 10. the other planar paths, one device call (16 MiB) each: raw-count
    tables (total 2^24, where the reference switches its decode divide),
    a 4096-symbol alphabet under a rans16 config (the planar fallback),
@@ -702,18 +710,21 @@ def planar_round_trip(smoke, what, data, encode, device="cuda",
     and no rans16 kernel,
     and the encode launches the histogram kernel once on the path
     ``histogram`` names (``None``: the table's counts are not taken on
-    the card)."""
+    the card); every coder launch reports the total form the
+    container's ``k`` selects (``pow2`` up to 16, ``pow2_wide`` above,
+    ``raw`` for a raw total)."""
     import numpy as np
     import torch
 
     import range_coder_rust_tpu_torch as rt
-    from range_coder_rust_tpu_torch import api, format as fmt
+    from range_coder_rust_tpu_torch import api, format as fmt, kernels
 
     rt.reset_launch_counts()
     blob, t_enc = timed(lambda: encode(device), device)
     out, t_dec = timed(lambda: rt.decode(blob, device=device), device)
     counts = rt.launch_counts()
     placed = rt.launch_placements()["planar_histogram"]
+    totals = rt.launch_totals()
     if out.dtype != np.int32 or not np.array_equal(out, data):
         raise AssertionError(f"{what}: round trip is not exact")
     cont = fmt.unpack(blob)
@@ -728,15 +739,21 @@ def planar_round_trip(smoke, what, data, encode, device="cuda",
             or counts["planar_compact"] != (calls if on_card else 0)
             or not (counts["planar_encode"] >= calls if on_card
                     else counts["planar_encode"] == 0)
-            or placed != hist_want):
+            or placed != hist_want
+            or on_card and any(
+                totals[name] != {**dict.fromkeys(kernels.TOTAL_FORMS, 0),
+                                 kernels.planar.total_form(cont.k):
+                                     counts[name]}
+                for name in ("planar_encode", "planar_decode"))):
         raise AssertionError(f"{what}: {calls} device calls, launches "
-                             f"{counts}, histogram paths {placed}")
+                             f"{counts}, histogram paths {placed}, total "
+                             f"forms {totals}")
     checked = check_sampled_blocks(what, data, cont)
     res = {"blob": blob, "cont": cont, "enc_s": t_enc, "dec_s": t_dec,
            "bits": 8 * len(blob) / max(n, 1),
            "enc_step_ms": t_enc / (calls * (L + 1)) * 1e3,
            "dec_step_ms": t_dec / (calls * L) * 1e3, "counts": counts,
-           "histogram_paths": placed}
+           "histogram_paths": placed, "totals": totals}
     smoke.say(f"{what}: n={n} L={L} blocks={cont.n_blocks} k={cont.k} "
               f"({calls} device calls): round trip exact (int32), encode "
               f"wall {t_enc:.4f} s = {n / t_enc / 1e9:.4f} GB/s "
@@ -746,7 +763,7 @@ def planar_round_trip(smoke, what, data, encode, device="cuda",
               f"{len(blob)} "
               f"B = {res['bits']:.5f} bits/sym, {checked} sampled blocks == "
               f"the scalar coder's, launches {counts}, histogram paths "
-              f"{placed}")
+              f"{placed}, total forms {totals}")
     return res
 
 
@@ -992,10 +1009,11 @@ def zipf_on_card(n: int, a: int, alpha: float, dtype, seed: int):
 
 def planar_histogram_check(smoke, data, device="cuda") -> dict:
     """Phase 9's histogram: the histogram kernel on the main path's
-    corpus on the card (u8, 256 bins) and on 10^8 Zipf(1.0) u16 token ids
-    over 50257 drawn there, the planar cells' two shapes.  Each launch
-    must report the path its alphabet selects (``warp_private``,
-    ``block_smem``) and its counts must equal the plain version's on the
+    corpus on the card (u8, 256 bins), on 10^8 Zipf(1.0) u16 token ids
+    over 50257 and on 10^8 int32 ids over 100352 drawn there, the planar
+    cells' three shapes.  Each launch must report the path its alphabet
+    selects (``warp_private``, ``block_smem``, ``global``) and its
+    counts must equal the plain version's on the
     same tensor (no difference allowed).  Returns, for each, the kernel's
     ms (CUDA events, mean of 20 after a warm-up), the plain version's
     (host clock, one run), ``torch.bincount``'s alone on the symbols it
@@ -1008,7 +1026,10 @@ def planar_histogram_check(smoke, data, device="cuda") -> dict:
     inputs = {"bytes": (lambda: torch.from_numpy(data).to(device), 256,
                         "warp_private"),
               "tokens": (lambda: zipf_on_card(10**8, 50257, 1.0, torch.int16,
-                                              0x50257), 50257, "block_smem")}
+                                              0x50257), 50257, "block_smem"),
+              "olmo_ids": (lambda: zipf_on_card(
+                  10**8, 100352, 1.0, torch.int32, 0x100352), 100352,
+                  "global")}
     out = {}
     for name, (make, a, path) in inputs.items():
         sym = make()
@@ -1041,6 +1062,87 @@ def planar_histogram_check(smoke, data, device="cuda") -> dict:
         out[name] = res
         del sym, wide, got, want
     return out
+
+
+def first_call_ms(cont, device="cuda") -> dict:
+    """Each planar coder kernel's ms (CUDA events, mean of 3 after a
+    warm-up) on the first device call of a container (its first 2^24
+    symbols), as the api runs them: the encode on the container's symbols
+    (decoded first) at their row width, the decode on the payloads where
+    they lie."""
+    import numpy as np
+    import torch
+
+    from range_coder_rust_tpu_torch import api, blocks, kernels
+
+    L, k = cont.block_len, cont.k
+    nb = min(cont.n_blocks, api._CHUNK_SYMBOLS // L)
+    c_np = np.asarray(cont.tables_c, np.int64)
+    c = torch.from_numpy(c_np).to(device)
+    cum = torch.from_numpy(np.concatenate([[0], np.cumsum(c_np)])).to(device)
+    flat, offs, lens = blocks.payload_buffers(cont.payloads[:nb],
+                                              cont.lengths[:nb], device)
+    dec_kw = dict(k=k, block_len=L, offsets=offs, lengths=lens)
+    values = kernels.planar_decode_blocks(flat, c, cum, **dec_kw)
+    a = cont.alphabet
+    rows = blocks.upload_rows(values.cpu().numpy().astype(
+        np.uint8 if a <= 256 else np.uint16 if a <= 65536 else np.int32),
+        device)
+    cap = blocks.default_capacity(L, k)
+    return {"blocks": nb, "rows": str(rows.dtype),
+            "planar_encode": cuda_ms(lambda: kernels.planar_encode_blocks(
+                rows, c, cum, k=k, capacity=cap)),
+            "planar_decode": cuda_ms(lambda: kernels.planar_decode_blocks(
+                flat, c, cum, **dec_kw))}
+
+
+def planar_wide_path(smoke, device="cuda", n=(1 << 25) + 777,
+                     n_narrow=1 << 24) -> dict:
+    """Phase 9's wide tables: 2^25 + 777 Zipf(1.0) uint32 ids over
+    OLMo's 100352 with ``CodecConfig(k=20)`` (three device calls): an
+    exact round trip, the histogram on ``global``, both coder kernels
+    with their table in device memory (``global``) on the ``pow2_wide``
+    total; then each coder kernel's ms on its first device call beside
+    the same kernel's on a k 16 call of 2^24 u16 ids over 50257 (``n``
+    and ``n_narrow`` ids: smaller for a rehearsal on the CPU, where
+    nothing is launched or timed on a card)."""
+    import numpy as np
+    import torch
+
+    import range_coder_rust_tpu_torch as rt
+    from range_coder_rust_tpu_torch import format as fmt
+    from range_coder_rust_tpu_torch import kernels
+
+    a = 100352
+    ids = zipf_on_card(n, a, 1.0, torch.int32, 0x100352).cpu().numpy()
+    ids = ids.astype(np.uint32)
+    cfg = rt.CodecConfig(k=20)
+    res = planar_round_trip(smoke, "planar k 20 over 100352 ids", ids,
+                            lambda dev: rt.encode(ids, alphabet=a,
+                                                  config=cfg, device=dev),
+                            device, histogram="global")
+    placed = rt.launch_placements()
+    for name in ("planar_encode", "planar_decode"):
+        if torch.device(device).type == "cuda" and placed[name] != {
+                **dict.fromkeys(kernels.PLACEMENTS, 0),
+                "global": res["counts"][name]}:
+            raise AssertionError(f"planar k 20: {name} placements "
+                                 f"{placed[name]}")
+    tok = zipf_on_card(n_narrow, 50257, 1.0, torch.int16, 0x50257)
+    tok = tok.cpu().numpy().view(np.uint16)
+    narrow = fmt.unpack(rt.encode(tok, alphabet=50257, device=device))
+    times = {"k20_A100352": first_call_ms(fmt.unpack(res["blob"]), device),
+             "k16_A50257": first_call_ms(narrow, device)}
+    for what, t in times.items():
+        smoke.say(f"planar kernels, first device call of {what} "
+                  f"({t['blocks']} blocks, {t['rows']} rows): encode "
+                  f"{t['planar_encode']:.4f} ms, decode "
+                  f"{t['planar_decode']:.4f} ms")
+    smoke.say(f"planar k 20: launches by placement {placed}, by total form "
+              f"{res['totals']}")
+    return {k: res[k] for k in ("enc_s", "dec_s", "bits", "counts",
+                                "histogram_paths", "totals")} | {
+        "placements": placed, "times": times}
 
 
 def planar_other_paths(smoke, data, mixed, device="cuda") -> dict:
@@ -1487,6 +1589,7 @@ def main() -> int:
     planar["kernels"] = phase("9 planar loops", planar_kernels, main["data"],
                               planar["cont"])
     hist = phase("9 planar histogram", planar_histogram_check, main["data"])
+    wide = phase("9 planar wide", planar_wide_path)
     mixed = testing.mixed_corpus(
         min(main["data"].size, 1 << 24)).astype(np.uint8)
     other = phase("10 other planar", planar_other_paths, main["data"], mixed)
@@ -1502,7 +1605,7 @@ def main() -> int:
         for name, r in {"main": planar, **other}.items()}
         | {"kernels": {k: planar["kernels"][k] for k in (
             "times", "bounds", "matrix_ms", "compact", "device_events",
-            "busy_share")}, "histogram": hist}))
+            "busy_share")}, "histogram": hist, "wide": wide}))
     for name in ("rans_encode", "rans_decode"):
         err[name] = max(err[name], vs["err"][name], adapt["err"][name])
     for name in ("planar_encode", "planar_decode"):
@@ -1555,8 +1658,10 @@ def main() -> int:
          "max_abs_err": err["planar_histogram"],
          **{k: hist["bytes"][k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
-         **{f"tokens_{k}": hist["tokens"][k] for k in (
-             "n", "path", "ms", "plain_ms", "bound_ms", "library_ms")},
+         **{f"{shape}_{k}": hist[shape][k] for shape in ("tokens",
+                                                          "olmo_ids")
+            for k in ("n", "path", "ms", "plain_ms", "bound_ms",
+                      "library_ms")},
          "other_paths_launches": {p: r["counts"]["planar_histogram"]
                                   for p, r in other.items()},
          "sharded_launches": sharded["counts"]["planar_histogram"],

@@ -55,8 +55,13 @@ def encode_adaptive(
     with_checksums: bool = True,
     device="cuda",
 ) -> bytes:
-    """One-call adaptive encode: per-block tables, then the container."""
-    symbols, a = _as_symbols(data, alphabet)
+    """One-call adaptive encode: per-block tables, then the container.
+    ``k`` in [1, 16]: the wider totals of the shared planar table
+    (``CodecConfig(k=...)`` up to 24) are refused here, where each block
+    stores its own table."""
+    if not 1 <= k <= 16:
+        raise ConfigError(f"per-block tables take k in [1, 16], got {k}")
+    symbols, a = _as_symbols(data, alphabet, device)
     if a > 1 << k:
         raise ConfigError(
             f"alphabet {a} cannot get nonzero frequencies under total 2**{k}")

@@ -56,6 +56,7 @@ from .blocks import (decode_payloads, default_capacity, host_rows,
 from .errors import ConfigError, ZeroFrequency
 from .kernels import planar_compact, planar_encode_blocks, planar_histogram
 from .kernels.histogram import ROW_TYPES
+from .kernels.planar import MAX_K
 from .models.table import Pow2Table, build_table_pow2
 from .utils.profiling import annotate
 
@@ -67,7 +68,9 @@ _CHUNK_SYMBOLS = 1 << 24
 class CodecConfig:
     """Tunables for the codec, as in the reference package."""
 
-    k: int = 16  # total_freq = 2**k
+    #: total_freq = 2**k: k in [1, 24] for planar (above 16 the port's
+    #: own: the JAX package's CodecConfig stops at 16), 16 for rans16
+    k: int = 16
     #: symbols per block (L).  None picks a profile-appropriate default:
     #: 512 for planar, 65536 for rans16.
     block_len: Optional[int] = None
@@ -87,8 +90,8 @@ class CodecConfig:
     sync_tiles: int = 0
 
     def __post_init__(self):
-        if not 1 <= self.k <= 16:
-            raise ConfigError(f"k={self.k} out of range [1, 16]")
+        if not 1 <= self.k <= MAX_K:
+            raise ConfigError(f"k={self.k} out of range [1, {MAX_K}]")
         if self.block_len is None:
             object.__setattr__(
                 self, "block_len",
@@ -121,7 +124,11 @@ class CodecConfig:
                     "[128, 65536]")
 
 
-def _as_symbols(data, alphabet: Optional[int]) -> tuple[np.ndarray, int]:
+def _as_symbols(data, alphabet: Optional[int], device=None
+                ) -> tuple[np.ndarray, int]:
+    """The input as a 1-D host array the codec takes (uint8, uint16 or
+    int32; any other integer dtype copied to int32, in a span
+    ``api.widen``) and the alphabet."""
     if isinstance(data, (bytes, bytearray, memoryview)):
         arr = np.frombuffer(bytes(data), dtype=np.uint8)
     else:
@@ -135,9 +142,10 @@ def _as_symbols(data, alphabet: Optional[int]) -> tuple[np.ndarray, int]:
     if inferred > a:
         raise ConfigError(f"symbol {inferred - 1} outside alphabet of {a}")
     # keep narrow unsigned dtypes: byte corpora stay 1 B/symbol
-    if arr.dtype in (np.uint8, np.uint16):
+    if arr.dtype in (np.uint8, np.uint16, np.int32):
         return arr, a
-    return arr.astype(np.int32), a
+    with annotate("api.widen", device):
+        return arr.astype(np.int32), a
 
 
 def _row_dtype(symbols: np.ndarray, a: int) -> np.dtype:
@@ -319,7 +327,7 @@ def encode(
     last device call, so an input larger than the device's free memory
     does not encode there; ``chunk_symbols`` bounds the code matrix of
     each call, not the input."""
-    symbols, a = _as_symbols(data, alphabet)
+    symbols, a = _as_symbols(data, alphabet, device)
     if config.raw_total:
         return _encode_raw(symbols, a, config, device)
 

@@ -35,8 +35,9 @@
 //    symbol ranges at the CTA's start after the (cum, c) pairs, 64 KiB or
 //    128 KiB behind the shared-memory opt-in.  Raw totals, per-block
 //    tables and tables too wide for shared memory keep the binary search.
-// 2. The target without a u64 division: a float (2^k totals) or double
-//    (raw totals) reciprocal estimate and one exact correction by a
+// 2. The target without a u64 division: a float (2^k totals up to 2^16)
+//    or double (2^k totals above 2^16, raw totals) reciprocal estimate
+//    and one exact correction by a
 //    128-bit product (planar_step.cuh's quotient); a raw total's rpt by a
 //    multiply-high with a reciprocal computed once a launch (Divisor).
 // 3. The code bytes read ahead in registers: aligned 16-byte loads one
@@ -159,7 +160,7 @@ cudaError_t launch(const uint8_t* code, long long code_bytes,
                  ? &launch_mode<Total, planar::kSmemPairs>
                  : &launch_mode<Total, planar::kGlobal>;
   // placement gives a slot table to totals of 2^k only
-  if constexpr (std::is_same<Total, planar::Pow2Total>::value) {
+  if constexpr (!std::is_same<Total, planar::RawTotal>::value) {
     if (where == planar::kSlots8) run = &launch_mode<Total, planar::kSlots8>;
     if (where == planar::kSlots16)
       run = &launch_mode<Total, planar::kSlots16>;
@@ -174,9 +175,10 @@ cudaError_t launch(const uint8_t* code, long long code_bytes,
 // are the lengths[b] bytes at offsets[b] of the `code_bytes` bytes at
 // `code`, or, with `offsets` and `lengths` null, the row_bytes bytes at
 // b * row_bytes.  The table c / cum (int64; one shared, or one per block
-// when `per_block`); total 2^k for k in [1, 16] or `total` for k = 0.
+// when `per_block`); total 2^k for k in [1, 24] or `total` for k = 0.
 // Where `placed` is not null, the launch's planar::Placement is written
-// there.  Returns the launch's cudaError_t.
+// there, and where `form` is not null its planar::TotalForm.  Returns the
+// launch's cudaError_t.
 extern "C" int rc_planar_decode(const uint8_t* code, long long code_bytes,
                                 const long long* offsets,
                                 const long long* lengths, long long row_bytes,
@@ -184,17 +186,16 @@ extern "C" int rc_planar_decode(const uint8_t* code, long long code_bytes,
                                 int per_block, int a_count, int k,
                                 unsigned long long total, int32_t* out,
                                 long long n_blocks, int L,
-                                cudaStream_t stream, int* placed) {
+                                cudaStream_t stream, int* placed, int* form) {
   if (n_blocks < 1 || L < 0 || row_bytes < 0 || code_bytes < 0 ||
-      a_count < 1 || k < 0 || k > 16 || total < 1 || total >> 32 ||
-      (offsets == nullptr) != (lengths == nullptr))
+      a_count < 1 || k < 0 || k > planar::kMaxK || total < 1 ||
+      total >> 32 || (offsets == nullptr) != (lengths == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  return k ? launch<planar::Pow2Total>(code, code_bytes, offsets, lengths,
-                                       row_bytes, c, cum, per_block, a_count,
-                                       k, total, out, n_blocks, L, stream,
-                                       placed)
-           : launch<planar::RawTotal>(code, code_bytes, offsets, lengths,
-                                      row_bytes, c, cum, per_block, a_count,
-                                      k, total, out, n_blocks, L, stream,
-                                      placed);
+  const int f = planar::total_form(k);
+  if (form) *form = f;
+  const auto run = f == planar::kPow2       ? &launch<planar::Pow2Total>
+                   : f == planar::kPow2Wide ? &launch<planar::Pow2WideTotal>
+                                            : &launch<planar::RawTotal>;
+  return run(code, code_bytes, offsets, lengths, row_bytes, c, cum, per_block,
+             a_count, k, total, out, n_blocks, L, stream, placed);
 }

@@ -183,14 +183,20 @@ struct TableFor<true> {
   }
 };
 
-// The launch's total as the step takes it: 2^k for k >= 1, else the raw
-// u32 `total` (its reciprocal computed here, once a launch).
+// The launch's total as the step takes it: 2^k for k >= 1 (Pow2Total or
+// Pow2WideTotal, as total_form says), else the raw u32 `total` (its
+// reciprocal computed here, once a launch).
 template <typename Total>
 Total total_of(int k, u64 total);
 
 template <>
 inline Pow2Total total_of<Pow2Total>(int k, u64) {
   return pow2_total(k);
+}
+
+template <>
+inline Pow2WideTotal total_of<Pow2WideTotal>(int k, u64) {
+  return pow2_wide_total(k);
 }
 
 template <>

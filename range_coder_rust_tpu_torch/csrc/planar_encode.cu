@@ -15,7 +15,9 @@
 // 8 bytes included.  Bytes past `capacity` are dropped while the length
 // keeps counting: a length above the capacity tells the caller to encode
 // again with more room.  The output comes zeroed from the wrapper, so the
-// row past the length reads 0.  The total is 2^k (rpt = range >> k) or
+// row past the length reads 0.  The total is 2^k for k in [1, 24]
+// (rpt = range >> k; above 2^16 under its own instantiation,
+// Pow2WideTotal, so that the launch reports the form the decode takes) or
 // any u32 total (k = 0: the exact u64 division, by a reciprocal).  The
 // table is one shared (A,) / (A + 1,) pair of int64 tables or one pair
 // per block (the adaptive mode).  A symbol outside [0, A) is coded as
@@ -123,33 +125,36 @@ cudaError_t launch_total(const void* sym, const long long* c,
                          int k, u64 total, uint8_t* out, long long* lengths,
                          long long n_blocks, int L, long long capacity,
                          cudaStream_t stream, int* placed) {
-  return k ? launch<Sym, planar::Pow2Total>(sym, c, cum, per_block, a_count,
-                                            k, total, out, lengths, n_blocks,
-                                            L, capacity, stream, placed)
-           : launch<Sym, planar::RawTotal>(sym, c, cum, per_block, a_count, k,
-                                           total, out, lengths, n_blocks, L,
-                                           capacity, stream, placed);
+  const int f = planar::total_form(k);
+  const auto run = f == planar::kPow2 ? &launch<Sym, planar::Pow2Total>
+                   : f == planar::kPow2Wide
+                       ? &launch<Sym, planar::Pow2WideTotal>
+                       : &launch<Sym, planar::RawTotal>;
+  return run(sym, c, cum, per_block, a_count, k, total, out, lengths,
+             n_blocks, L, capacity, stream, placed);
 }
 
 }  // namespace
 
 // Encode `n_blocks` rows of L symbols (`sym_bytes` 1: u8, 2: u16 bits,
 // 4: i32, 8: i64) with the table c / cum (int64; one shared, or one per
-// block when `per_block`), total 2^k for k in [1, 16] or `total` for
+// block when `per_block`), total 2^k for k in [1, 24] or `total` for
 // k = 0.  `out` is the zeroed (n_blocks, capacity) code matrix, `lengths`
 // (n_blocks,) int64.  Where `placed` is not null, the launch's
-// planar::Placement (kSmemPairs or kGlobal) is written there.  Returns the
-// launch's cudaError_t.
+// planar::Placement (kSmemPairs or kGlobal) is written there, and where
+// `form` is not null its planar::TotalForm.  Returns the launch's
+// cudaError_t.
 extern "C" int rc_planar_encode(const void* sym, int sym_bytes,
                                 const long long* c, const long long* cum,
                                 int per_block, int a_count, int k,
                                 unsigned long long total, uint8_t* out,
                                 long long* lengths, long long n_blocks, int L,
                                 long long capacity, cudaStream_t stream,
-                                int* placed) {
+                                int* placed, int* form) {
   if (n_blocks < 1 || L < 0 || a_count < 1 || capacity < 0 || k < 0 ||
-      k > 16 || (k == 0 && (total < 1 || total >> 32)))
+      k > planar::kMaxK || (k == 0 && (total < 1 || total >> 32)))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (form) *form = planar::total_form(k);
   switch (sym_bytes) {
     case 1:
       return launch_total<uint8_t>(sym, c, cum, per_block, a_count, k, total,

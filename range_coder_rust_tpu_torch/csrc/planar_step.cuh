@@ -384,10 +384,37 @@ PLANAR_HD u64 quotient(u64 d, u64 r, u64 qmax) {
 #endif
 }
 
-// The launch's total: 2^k (rpt = range >> k; the float quotient) or a raw
-// u32 total (rpt by the Divisor; the double quotient).  qmax = total - 1.
+//: the largest k of a total of 2^k: rpt = range >> k stays at 2^24 or more
+//: under the coder's invariant range >= 2^48, and every table sum is a u32
+constexpr int kMaxK = 24;
+//: the largest k whose target takes the float quotient (its error stays
+//: under 1/32 for qmax < 2^16); 2^k totals above it take the double one
+constexpr int kFloatMaxK = 16;
+
+//: the form of a launch's total (kernels/planar.py's TOTAL_FORMS names
+//: them in this order): 2^k with the float quotient, 2^k with the double
+//: quotient, or a raw u32 total
+enum TotalForm { kPow2 = 0, kPow2Wide = 1, kRaw = 2 };
+
+// The one rule of both planar launchers (k = 0: a raw total).
+PLANAR_HD int total_form(int k) {
+  return k == 0 ? kRaw : k <= kFloatMaxK ? kPow2 : kPow2Wide;
+}
+
+// The launch's total: 2^k for k <= 16 (rpt = range >> k; the float
+// quotient), 2^k for k in [17, 24] (the same rpt; the double quotient: at
+// k 24 the float estimate can miss by 4, past the one correction), or a
+// raw u32 total (rpt by the Divisor; the double quotient).
+// qmax = total - 1.
 struct Pow2Total {
   static constexpr bool kWide = false;
+  int k;
+  u64 qmax;
+  PLANAR_HD u64 rpt(u64 rng) const { return rng >> k; }
+};
+
+struct Pow2WideTotal {
+  static constexpr bool kWide = true;
   int k;
   u64 qmax;
   PLANAR_HD u64 rpt(u64 rng) const { return rng >> k; }
@@ -402,6 +429,10 @@ struct RawTotal {
 
 PLANAR_HD Pow2Total pow2_total(int k) {
   return Pow2Total{k, (1ull << k) - 1};
+}
+
+PLANAR_HD Pow2WideTotal pow2_wide_total(int k) {
+  return Pow2WideTotal{k, (1ull << k) - 1};
 }
 
 PLANAR_HD RawTotal raw_total(u64 total) {

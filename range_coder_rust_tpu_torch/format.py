@@ -21,7 +21,8 @@ Layout (all integers little-endian):
     4       1     version (= 1)
     5       1     flags   bit0 per-block tables, bit1 per-block CRC32,
                           bit2 rans16 profile
-    6       1     k       (total_freq = 2**k)
+    6       1     k       (total_freq = 2**k; 1..16, or 17..24 for a
+                          shared planar table, see below)
     7       1     log2(lanes per group) for rans16, else 0
     8       4     alphabet size A
     12      4     block length L (symbols per block / per rans16 lane)
@@ -37,6 +38,12 @@ Layout (all integers little-endian):
 
 The pad symbol for a partial last block is the table's most frequent
 symbol; N truncates it away on decode.
+
+A shared planar table may have ``k`` up to 24 (:data:`MAX_K`; its values
+are u32 as at 16).  Containers with ``k`` above 16 are the port's own:
+the JAX package's ``unpack`` refuses them (its ``k`` stops at 16), while
+every container with ``k`` up to 16 is byte for byte the JAX package's.
+Per-block tables and rans16 keep ``k`` in [1, 16] and 16.
 
 The rans16 profile (flag bit2) reuses the same container with payload =
 one interleaved group stream per "block" (rans.py layout: 8-byte-per-lane
@@ -89,6 +96,9 @@ FLAG_RANS16 = 1 << 2
 #: raw (un-normalized) u32 table: total_freq = sum(c), any u32 value —
 #: the reference's PModel contract (src/pmodel.rs:6-10); k is stored as 0
 FLAG_RAW_TOTAL = 1 << 3
+
+#: the largest ``k`` of a shared planar table (16 for every other form)
+MAX_K = 24
 
 _HEADER = struct.Struct("<4sBBBBIIQI")  # through block count B
 HEADER_BYTES = _HEADER.size
@@ -207,6 +217,8 @@ def pack(
         if profile != "planar" or per_block_tables:
             raise ValueError("raw-total tables: shared planar mode only")
         flags |= FLAG_RAW_TOTAL
+    elif not 1 <= k <= (16 if per_block_tables else MAX_K):
+        raise ValueError(f"k={k} out of range for this table form")
     glog = 0
     if profile == "rans16":
         if k != 16:
@@ -305,8 +317,8 @@ def _parse(blob: bytes) -> Container:
     if raw_total:
         if k != 0:
             raise InvalidHeader(f"raw-total container with k={k}")
-    elif not 1 <= k <= 16:
-        raise InvalidHeader(f"k={k} out of range [1, 16]")
+    elif not 1 <= k <= MAX_K:
+        raise InvalidHeader(f"k={k} out of range [1, {MAX_K}]")
     if alphabet < 1 or block_len < 1 or b < 1:
         raise InvalidHeader(
             f"bad geometry: alphabet={alphabet} block_len={block_len} blocks={b}"
@@ -316,6 +328,9 @@ def _parse(blob: bytes) -> Container:
     is_rans = bool(flags & FLAG_RANS16)
     if raw_total and (per_block or is_rans):
         raise InvalidHeader("raw-total container: shared planar mode only")
+    if per_block and k > 16:
+        raise InvalidHeader(f"per-block tables with k={k} out of range "
+                            "[1, 16]")
     group_lanes = 0
     if is_rans:
         if k != 16:

@@ -25,7 +25,7 @@ Both versions take
   (offsets ``b * C``, lengths ``C``);
 * the table as int64 tensors: one shared, ``c (A,)`` and ``cum (A+1,)``,
   or one per block, ``(B, A)`` and ``(B, A+1)`` (the adaptive mode);
-* the total: ``k`` for ``2**k`` (``k`` in [1, 16]) or ``total``, any u32
+* the total: ``k`` for ``2**k`` (``k`` in [1, 24]) or ``total``, any u32
   (raw-count tables, the exact division);
 
 and return ``(code (B, capacity) uint8, lengths (B,) int64)`` (the
@@ -33,6 +33,14 @@ encode; lengths with the 8 flush bytes, bytes past ``capacity`` dropped,
 zeros past each length) or ``(B, block_len)`` int32 symbols (the decode).
 Per block, the payload is byte-identical to the scalar coder's with the
 same table (reference src/range_coder.rs:53-92).
+
+The total takes one of three forms (:data:`TOTAL_FORMS`, the rule
+:func:`total_form`, as ``planar::total_form`` of ``csrc/planar_step.cuh``
+has it): ``pow2`` (``k`` up to 16: the kernel decode's target from a
+float estimate), ``pow2_wide`` (``k`` in [17, 24]: from a double one;
+the float estimate's error passes the one correction there) and ``raw``.
+Each wrapper counts its calls by form in ``<wrapper>.totals``: a kernel
+launch as the launch reported it, a plain version's call by the rule.
 
 The encode's payloads leave the card joined: :func:`planar_compact`
 writes each row's first ``lengths[b]`` bytes of the code matrix at
@@ -63,19 +71,37 @@ SYMBOL_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4,
 #: decode's slot table of u8 or u16 slots
 PLACEMENTS = ("global", "smem_pairs", "slots8", "slots16")
 
+#: the form of a call's total, by the number the kernel reports
+#: (``planar::TotalForm``): 2^k with the float quotient, 2^k with the
+#: double quotient, a raw u32 total
+TOTAL_FORMS = ("pow2", "pow2_wide", "raw")
+#: the largest k of a total of 2^k (``planar::kMaxK``): ``range >> k``
+#: stays at 2^24 or more under the coder's invariant range >= 2^48
+MAX_K = 24
+#: the largest k whose decode takes the float quotient
+#: (``planar::kFloatMaxK``)
+FLOAT_MAX_K = 16
+
 #: elements of one compaction index (blocks x transitions x 8 bytes):
 #: bounds its int64 index and byte tensors to 32 MiB and 4 MiB
 _COMPACT_ELEMS = 1 << 22
 
 
+def total_form(k: int) -> str:
+    """The form of a total of ``2**k`` (``k = 0``: a raw total), as the
+    kernels decide it (``planar::total_form``)."""
+    return ("raw" if k == 0 else "pow2" if k <= FLOAT_MAX_K
+            else "pow2_wide")
+
+
 def _total_of(k: Optional[int], total: Optional[int]) -> Tuple[int, int]:
-    """``(k, total)`` as the kernels take them: ``k`` in [1, 16] with
+    """``(k, total)`` as the kernels take them: ``k`` in [1, 24] with
     ``total = 2**k``, or ``k = 0`` with any u32 ``total``."""
     if (k is None) == (total is None):
         raise ValueError("give exactly one of k and total")
     if k is not None:
-        if not 1 <= k <= 16:
-            raise ValueError(f"k must be in [1, 16], got {k}")
+        if not 1 <= k <= MAX_K:
+            raise ValueError(f"k must be in [1, {MAX_K}], got {k}")
         return k, 1 << k
     if not 1 <= total < 1 << 32:
         raise ValueError(f"total {total} is not a u32 >= 1")
@@ -300,8 +326,10 @@ def planar_encode_blocks(symbols: torch.Tensor, c: torch.Tensor,
     for a CUDA tensor, the plain version for a CPU tensor.  See the module
     docstring."""
     if symbols.device.type == "cpu":
-        return planar_encode_plain(symbols, c, cum, k=k, total=total,
-                                   capacity=capacity)
+        out = planar_encode_plain(symbols, c, cum, k=k, total=total,
+                                  capacity=capacity)
+        planar_encode_blocks.totals[total_form(k or 0)] += 1
+        return out
     if symbols.device.type != "cuda":
         raise ValueError(f"no planar encode for device {symbols.device}")
     a = _check_encode(symbols, c, cum, capacity)
@@ -316,15 +344,16 @@ def planar_encode_blocks(symbols: torch.Tensor, c: torch.Tensor,
         return code, lengths
     from ._build import check, library
 
-    placed = ctypes.c_int(-1)
+    placed, form = ctypes.c_int(-1), ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = library().rc_planar_encode(
             symbols.data_ptr(), SYMBOL_BYTES[symbols.dtype], c.data_ptr(),
             cum.data_ptr(), int(c.dim() == 2), a, k, total, code.data_ptr(),
-            lengths.data_ptr(), B, L, capacity, stream, ctypes.byref(placed))
+            lengths.data_ptr(), B, L, capacity, stream, ctypes.byref(placed),
+            ctypes.byref(form))
     check(err, "planar encode kernel")
-    _count(planar_encode_blocks, placed.value)
+    _count(planar_encode_blocks, placed.value, form.value)
     return code, lengths
 
 
@@ -340,9 +369,11 @@ def planar_decode_blocks(code: torch.Tensor, c: torch.Tensor,
     CPU tensor.  Like the reference, a payload carries no end marker: the
     container gives the symbol count."""
     if code.device.type == "cpu":
-        return planar_decode_plain(code, c, cum, k=k, total=total,
-                                   block_len=block_len, offsets=offsets,
-                                   lengths=lengths)
+        out = planar_decode_plain(code, c, cum, k=k, total=total,
+                                  block_len=block_len, offsets=offsets,
+                                  lengths=lengths)
+        planar_decode_blocks.totals[total_form(k or 0)] += 1
+        return out
     if code.device.type != "cuda":
         raise ValueError(f"no planar decode for device {code.device}")
     a, B = _check_decode(code, c, cum, block_len, offsets, lengths)
@@ -359,28 +390,34 @@ def planar_decode_blocks(code: torch.Tensor, c: torch.Tensor,
                                          lengths.data_ptr())
     from ._build import check, library
 
-    placed = ctypes.c_int(-1)
+    placed, form = ctypes.c_int(-1), ctypes.c_int(-1)
     with torch.cuda.device(code.device):
         stream = torch.cuda.current_stream(code.device).cuda_stream
         err = library().rc_planar_decode(
             code.data_ptr(), code.numel(), offs_ptr, lens_ptr, row_bytes,
             c.data_ptr(), cum.data_ptr(), int(c.dim() == 2), a, k, total,
-            out.data_ptr(), B, block_len, stream, ctypes.byref(placed))
+            out.data_ptr(), B, block_len, stream, ctypes.byref(placed),
+            ctypes.byref(form))
     check(err, "planar decode kernel")
-    _count(planar_decode_blocks, placed.value)
+    _count(planar_decode_blocks, placed.value, form.value)
     return out
 
 
-def _count(wrapper, placed: int) -> None:
-    """One launch of ``wrapper``'s kernel, at the table placement the
-    kernel reported."""
+def _count(wrapper, placed: int, form: int) -> None:
+    """One launch of ``wrapper``'s kernel, at the table placement and
+    the total form the kernel reported."""
     wrapper.placements[PLACEMENTS[placed]] += 1
+    wrapper.totals[TOTAL_FORMS[form]] += 1
 
 
 #: launches of the CUDA kernels (the plain versions do not count), by the
 #: table placement each launch reported
 planar_encode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)
 planar_decode_blocks.placements = dict.fromkeys(PLACEMENTS, 0)
+#: calls by the form of their total: the kernel's launches as each
+#: reported it, the plain version's by :func:`total_form`
+planar_encode_blocks.totals = dict.fromkeys(TOTAL_FORMS, 0)
+planar_decode_blocks.totals = dict.fromkeys(TOTAL_FORMS, 0)
 
 
 def _check_compact(code: torch.Tensor, lengths: torch.Tensor,

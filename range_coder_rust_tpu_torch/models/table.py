@@ -89,9 +89,10 @@ def normalize_pow2(counts: torch.Tensor, k: int) -> torch.Tensor:
     The reference's ``normalize_pow2`` (``models/table.py:61-115``) mapped
     over rows, and its ``normalize_pow2_np`` on one row: their sorts are
     stable, and so are these.  Each row needs a total below 2^31 and at
-    most ``2**k`` present symbols."""
-    if not 1 <= k <= 16:
-        raise ValueError(f"k must be in [1, 16], got {k}")
+    most ``2**k`` present symbols; ``k`` goes up to 24 (the planar
+    profile's widest tables), where ``counts << k`` stays below 2^55."""
+    if not 1 <= k <= 24:
+        raise ValueError(f"k must be in [1, 24], got {k}")
     counts = counts.long()
     a = counts.shape[-1]
     total = counts.sum(-1, keepdim=True).clamp(min=1)

@@ -84,8 +84,8 @@ def param_update_pow2(state: CoderState, c, cum, k: int
     """One symbol with total frequency ``2**k``: ``rpt = range >> k``.
     Returns ``(state', emit_low, n)``: this symbol's stream bytes are the
     top ``n`` bytes of ``emit_low`` (zeros past the eighth)."""
-    if not 1 <= k <= 16:
-        raise ValueError(f"k must be in [1, 16], got {k}")
+    if not 1 <= k <= 24:
+        raise ValueError(f"k must be in [1, 24], got {k}")
     return _step(state, u64.shr(state.rng, k), c, cum)
 
 

@@ -264,7 +264,8 @@ def kernels_vs_plain(rows: np.ndarray, g: int, a: int, device, *,
 PLANAR_CASES = ["k16_shared_u8_L512", "A4096_u16", "A65536_device_table",
                 "raw_total", "total_1", "per_block_k12",
                 "capacity_overflow", "odd_L63_cap199", "decode_width_1021",
-                "flat_odd_offsets"]
+                "flat_odd_offsets", "k17_slots8", "k20_A100352_i32",
+                "k24_A4096_u16"]
 
 
 def planar_case(name: str) -> dict:
@@ -310,6 +311,16 @@ def planar_case(name: str) -> dict:
     elif name == "flat_odd_offsets":
         B, L = 300, 61
         values = zipf(B * L, a, 29)
+    elif name == "k17_slots8":  # the wide quotient beside a u8 slot table
+        k = 17
+        values = zipf(B * L, a, 30)
+    elif name == "k20_A100352_i32":  # int32 rows, the table in memory
+        k, a = 20, 100352
+        values = zipf(B * L, a, 31, alpha=1.0)
+        values[::89] = a - 1
+    elif name == "k24_A4096_u16":  # the widest total, pairs staged
+        k, a = 24, 4096
+        values = zipf(B * L, a, 32, alpha=0.9)
     else:
         raise KeyError(name)
     values = values.reshape(B, L)
@@ -333,7 +344,8 @@ def planar_case(name: str) -> dict:
     if cap is None:
         cap = (default_capacity(L, k) if "k" in total
                else -(-(6 * L + 8) // 4) * 4)
-    host = values.astype(np.uint8 if a <= 256 else np.uint16)
+    host = values.astype(np.uint8 if a <= 256 else np.uint16 if a <= 65536
+                         else np.int32)
     return {"rows": upload_rows(host, "cpu").numpy(), "values": values,
             "c": c, "cum": cum, "total": total, "capacity": cap,
             "width": width}

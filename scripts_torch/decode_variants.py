@@ -391,7 +391,7 @@ def planar_runners(kernel: str, libs: dict, inp: dict) -> dict:
                 _launch(fn(rows.data_ptr(), 1, x["c"].data_ptr(),
                            x["cum"].data_ptr(), 0, 256, k, total,
                            enc_code.data_ptr(), enc_len.data_ptr(), nb, L,
-                           x["cap"], stream(), None))
+                           x["cap"], stream(), None, None))
 
             def exact(run=run):
                 ok = True
@@ -425,7 +425,7 @@ def planar_runners(kernel: str, libs: dict, inp: dict) -> dict:
                            x["offsets"].data_ptr(), x["lengths"].data_ptr(),
                            0, x["c"].data_ptr(), x["cum"].data_ptr(), 0, 256,
                            k, total, dev_out.data_ptr(), nb, L, stream(),
-                           None))
+                           None, None))
         if kernel == "planar_decode":
             def exact(run=run):
                 ok = True

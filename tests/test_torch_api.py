@@ -134,13 +134,29 @@ def test_symbol_outside_alphabet_raises():
     dict(profile="rans16", k=12), dict(profile="nope"), dict(block_len=0),
     dict(raw_total=True, profile="rans16"), dict(per_group_tables=True),
     dict(sync_tiles=-1), dict(sync_tiles=2), dict(group_lanes=256),
-    dict(profile="rans16", group_lanes=384), dict(k=17),
+    dict(profile="rans16", group_lanes=384), dict(k=25),
 ])
 def test_codec_config_validation_matches_reference(kw):
     with pytest.raises(jerr.ConfigError):
         japi.CodecConfig(**kw)
     with pytest.raises(ConfigError):
         rt.CodecConfig(**kw)
+
+
+def test_codec_config_takes_wide_planar_tables_only():
+    """The port takes k 17 to 24 for a shared planar table, past the JAX
+    package's 16 as the upstream coder's u32 totals allow, and still
+    refuses them for rans16 and for per-block tables."""
+    for k in range(17, 25):
+        assert rt.CodecConfig(k=k).k == k
+        with pytest.raises(jerr.ConfigError):
+            japi.CodecConfig(k=k)
+        with pytest.raises(ConfigError):
+            rt.CodecConfig(k=k, profile="rans16")
+    from range_coder_rust_tpu_torch import adaptive
+
+    with pytest.raises(ConfigError):
+        adaptive.encode_adaptive(np.arange(8), k=17, device="cpu")
 
 
 def test_codec_config_defaults_match_reference():

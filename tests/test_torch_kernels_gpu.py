@@ -269,6 +269,28 @@ def test_cuda_planar_shared_tables_by_width_match_plain(a, encode_at,
                                        decode_at: 1}
 
 
+@pytest.mark.parametrize("name,encode_at,decode_at", [
+    ("k17_slots8", "smem_pairs", "slots8"),
+    ("k20_A100352_i32", "global", "global"),
+    ("k24_A4096_u16", "smem_pairs", "smem_pairs")])
+def test_cuda_planar_wide_totals_report_their_form(name, encode_at, decode_at,
+                                                   cuda_device):
+    """The 2^17 to 2^24 totals: each launch of both planar kernels
+    reports the ``pow2_wide`` form and the placement its width selects,
+    and equals its plain version (``testing.planar_vs_plain``)."""
+    kernels.reset_launch_counts()
+    assert planar_vs_plain(name, cuda_device) == {"planar_encode": 0,
+                                                  "planar_decode": 0}
+    placed, totals = kernels.launch_placements(), kernels.launch_totals()
+    for kernel, at in (("planar_encode", encode_at),
+                       ("planar_decode", decode_at)):
+        n = sum(placed[kernel].values())
+        assert n >= 1 and placed[kernel][at] == n
+        # the kernel's n launches and the plain version's calls, all wide
+        assert totals[kernel]["pow2_wide"] > n
+        assert totals[kernel]["pow2"] == totals[kernel]["raw"] == 0
+
+
 @pytest.mark.parametrize("mode", ["shared", "raw_total", "per_block"])
 def test_cuda_planar_encode_matches_cpu(mode, cuda_device):
     """The planar profile on the card (the planar kernels): the container

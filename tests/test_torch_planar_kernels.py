@@ -151,7 +151,7 @@ def test_argument_checks_raise():
     bad_encode = [
         dict(symbols=rows.float()), dict(symbols=rows[0]),
         dict(c=c.int()), dict(cum=cum[:2]), dict(c=c[None].expand(3, 2)),
-        dict(k=None), dict(k=2, total=4), dict(k=17), dict(k=None, total=0),
+        dict(k=None), dict(k=2, total=4), dict(k=25), dict(k=None, total=0),
         dict(k=None, total=1 << 32), dict(capacity=-1),
         dict(symbols=rows.to("meta")),
     ]
